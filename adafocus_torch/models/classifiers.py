@@ -1,0 +1,39 @@
+"""Recurrent classifier over fused glance + focus features (counterpart of
+``RecurrentClassifier`` in adafocus_tpu/models/classifiers.py).
+
+GRU(input = 1280 + 2048 = 3328, hidden = 1024) and a per-step FC. The
+hidden state is an explicit carry; ``step`` is one MDP step.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from adafocus_torch.models.gru import GRUCell
+
+
+class RecurrentClassifier(nn.Module):
+    def __init__(self, in_dim: int, num_classes: int, hidden_dim: int = 1024):
+        super().__init__()
+        self.gru = GRUCell(in_dim, hidden_dim)
+        self.fc = nn.Linear(hidden_dim, num_classes)
+
+    def step(self, hidden: torch.Tensor, feature: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One timestep: (h, (B, D)) -> (h', (B, classes))."""
+        hidden = self.gru(hidden, feature)
+        return hidden, self.fc(hidden)
+
+    def forward_with_hiddens(self, features: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, D) -> (logits (B, T, classes), hiddens (B, T, H))."""
+        h0 = self.gru.initial_state(features.shape[0])
+        _, hs = self.gru.scan_time(h0, features.transpose(0, 1))
+        return self.fc(hs).transpose(0, 1), hs.transpose(0, 1)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """features (B, T, D) -> per-step logits (B, T, classes)."""
+        return self.forward_with_hiddens(features)[0]

@@ -1,0 +1,85 @@
+"""MobileNetV2 glancer backbone (counterpart of adafocus_tpu/models/mobilenet.py).
+
+Same inverted-residual configuration and submodule names as the JAX
+package (``stem``, ``block_{i}_{j}/{expand,dw,project}``, ``head_conv``,
+``classifier``), so a flax tree maps onto the state dict key by key. The
+temporal-shift (TSM) variant is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from adafocus_torch.models.layers import ConvBNAct, global_avg_pool, make_divisible
+
+# (expand_ratio t, channels c, num_blocks n, stride s)
+_INVERTED_RESIDUAL_CFG = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+
+class InvertedResidual(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 expand_ratio: int):
+        super().__init__()
+        hidden = int(round(in_channels * expand_ratio))
+        self.use_res = stride == 1 and in_channels == out_channels
+        self.expand = (
+            ConvBNAct(in_channels, hidden, kernel_size=1)
+            if expand_ratio != 1 else None
+        )
+        self.dw = ConvBNAct(hidden, hidden, kernel_size=3, stride=stride,
+                            groups=hidden)
+        self.project = ConvBNAct(hidden, out_channels, kernel_size=1, act=None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x if self.expand is None else self.expand(x)
+        h = self.project(self.dw(h))
+        return x + h if self.use_res else h
+
+
+class MobileNetV2(nn.Module):
+    """``features`` returns (pre-pool map, pooled vector); ``classify`` is
+    the stage-0 pretraining head (dropout is the identity in eval mode)."""
+
+    def __init__(self, num_classes: int = 1000):
+        super().__init__()
+        self.feature_dim = make_divisible(1280)
+        in_c = make_divisible(32)
+        self.stem = ConvBNAct(3, in_c, kernel_size=3, stride=2)
+        self.block_names = []
+        for i, (t, c, n, s) in enumerate(_INVERTED_RESIDUAL_CFG):
+            out_c = make_divisible(c)
+            for j in range(n):
+                name = f"block_{i}_{j}"
+                self.add_module(
+                    name, InvertedResidual(in_c, out_c, s if j == 0 else 1, t)
+                )
+                self.block_names.append(name)
+                in_c = out_c
+        self.head_conv = ConvBNAct(in_c, self.feature_dim, kernel_size=1)
+        self.dropout = nn.Dropout(0.2)
+        self.classifier = nn.Linear(self.feature_dim, num_classes)
+
+    def backbone(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem(x)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return self.head_conv(x)
+
+    def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, 3, H, W) -> (map (N, 1280, h, w), pooled (N, 1280))."""
+        fmap = self.backbone(x)
+        return fmap, global_avg_pool(fmap)
+
+    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.classifier(self.dropout(pooled))

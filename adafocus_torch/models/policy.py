@@ -1,0 +1,113 @@
+"""Recurrent actor-critic policy, discrete grid (counterpart of
+adafocus_tpu/models/policy.py).
+
+A 1x1-conv state encoder over the glance feature map, a GRU carried across
+the T focus steps, a linear actor over a K-point anchor grid and a scalar
+critic. Only greedy (eval) action selection is ported so far; sampling and
+the continuous Gaussian policy come with the PPO slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from adafocus_torch.models.gru import GRUCell
+
+# width of the encoded policy state, whatever the GRU's hidden size (the
+# JAX package's ActorCritic.feat_dim, which GFV leaves at its default)
+STATE_DIM = 1024
+
+
+def action_grid(action_dim: int, device=None) -> torch.Tensor:
+    """K uniformly spaced (y, x) anchors in [0, 1]^2, float32, (K, 2).
+
+    Bit-identical to the JAX package's ``jnp.linspace`` grid: ``iota * f32(1 /
+    (k - 1))`` with the last point set to 1.0. ``torch.linspace`` differs from
+    it by one ulp at some points, enough to move ``floor(a * span)`` by one
+    pixel (K=49, span 96: 63 instead of 64).
+    """
+    k = math.isqrt(action_dim)
+    if k * k != action_dim:
+        raise ValueError(f"action_dim {action_dim} must be a perfect square")
+    line = torch.arange(k, dtype=torch.float32, device=device)
+    if k > 1:
+        line = line * torch.tensor(1.0 / (k - 1), dtype=torch.float32, device=device)
+        line[-1] = 1.0
+    yy, xx = torch.meshgrid(line, line, indexing="ij")
+    return torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
+
+
+class StateEncoder(nn.Module):
+    """Glance feature map (N, h, w, C) -> flat policy state (N, STATE_DIM):
+    1x1 conv, ReLU, flatten in (h, w, c) order, Dense, ReLU.
+
+    The flatten order is the JAX package's NHWC one, so that the ``fc``
+    weights line up with a bridged flax tree."""
+
+    def __init__(self, in_channels: int, map_hw: Tuple[int, int],
+                 conv_channels: int = 32):
+        super().__init__()
+        self.proj = nn.Conv2d(in_channels, conv_channels, 1)
+        self.fc = nn.Linear(map_hw[0] * map_hw[1] * conv_channels, STATE_DIM)
+
+    def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.proj(fmap.permute(0, 3, 1, 2)))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        return F.relu(self.fc(x))
+
+
+class ActorCritic(nn.Module):
+    """Discrete recurrent actor-critic over a K-point anchor grid."""
+
+    def __init__(self, in_channels: int, map_hw: Tuple[int, int],
+                 action_dim: int = 49, hidden_dim: int = 1024,
+                 encoder_channels: int = 32):
+        super().__init__()
+        self.encoder = StateEncoder(in_channels, map_hw, encoder_channels)
+        self.gru = GRUCell(STATE_DIM, hidden_dim)
+        self.actor = nn.Linear(hidden_dim, action_dim)
+        self.critic = nn.Linear(hidden_dim, 1)
+
+    def rollout_states(self, fmaps_tb: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Encode all T steps in one batched call, run the GRU recurrence,
+        then actor and critic batched.
+
+        fmaps_tb: (T, B, gh, gw, C). Returns time-major
+        (hiddens (T, B, H), actor logits (T, B, K), value (T, B)).
+        """
+        t, b = fmaps_tb.shape[:2]
+        states = self.encoder(fmaps_tb.reshape((t * b,) + fmaps_tb.shape[2:]))
+        _, hiddens = self.gru.scan_time(
+            self.gru.initial_state(b), states.reshape(t, b, -1)
+        )
+        return hiddens, self.actor(hiddens), self.critic(hiddens)[..., 0]
+
+
+def greedy_discrete(logits: torch.Tensor) -> torch.Tensor:
+    """Eval-time deterministic action: the first index of the maximum."""
+    return logits.argmax(dim=-1)
+
+
+def discrete_to_coords(idx: torch.Tensor, action_dim: int) -> torch.Tensor:
+    """Grid index -> (y, x) in [0, 1]^2, float32."""
+    return action_grid(action_dim, device=idx.device)[idx]
+
+
+def sample_rollout(actor_out: torch.Tensor, mode: str, action_dim: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Action selection over a time-major rollout.
+
+    actor_out: (T, B, K) logits. Returns time-major (actions (T, B, 2) f32,
+    idx (T, B), logprob (T, B), zeros in greedy mode).
+    """
+    if mode != "greedy":
+        raise NotImplementedError(f"mode={mode!r}: only 'greedy' is ported")
+    idx = greedy_discrete(actor_out)
+    logprob = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    return discrete_to_coords(idx, action_dim), idx, logprob
