@@ -8,6 +8,9 @@ The deployment forward runs in five phases, batched over B*T:
   4. focus:      ResNet-50 over the patches;
   5. classify:   concat [pooled 1280 | local 2048] -> GRU -> per-step FC.
 
+With ``inference(..., fused="on")`` phases 1 and 4 run each residual block
+of the backbones as one CUDA kernel (models/fused_inference.py).
+
 The public functions keep the JAX package's layouts: frames are
 channels-last (B, T, S, S, 3), feature maps (B, T, gh, gw, C). Inside, the
 backbones take NCHW views of channels-last memory, which is free.
@@ -29,6 +32,7 @@ from torch import nn
 
 from adafocus_torch import default_device
 from adafocus_torch.models.classifiers import RecurrentClassifier
+from adafocus_torch.models.fused_inference import fused_enabled, fused_focus, fused_glance
 from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.models.mobilenet import MobileNetV2
 from adafocus_torch.models.policy import ActorCritic, sample_rollout
@@ -250,29 +254,38 @@ def _on_model_device(model: GFV, device: Device, *arrays):
 
 
 def _focus_and_classify(model: GFV, frames: torch.Tensor, pooled: torch.Tensor,
-                        actions: torch.Tensor) -> torch.Tensor:
-    """Phases 3-5: extraction at ``actions``, focus, fuse and classify."""
+                        actions: torch.Tensor, fused: bool = False) -> torch.Tensor:
+    """Phases 3-5: extraction at ``actions``, focus (on the fused path when
+    ``fused``), fuse and classify."""
     cfg = model.cfg
     b, t = pooled.shape[:2]
     patches = extract_for_frames(frames, actions, cfg.image_size, cfg.patch_size)
-    local = model.focus(patches).reshape(b, t, -1)
-    return fuse_and_classify(model, pooled, local)
+    local = fused_focus(model, patches) if fused else model.focus(patches)
+    return fuse_and_classify(model, pooled, local.reshape(b, t, -1))
 
 
 @torch.inference_mode()
 def inference(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
-              device: Device = None) -> torch.Tensor:
+              device: Device = None, fused: str = "auto") -> torch.Tensor:
     """Deployment forward with the greedy policy.
 
     frames: (B, T, S, S, 3) full-resolution frames, unpadded.
     frames_small: (B, T, g, g, 3) downsampled frames.
+    fused: backbone path. 'on' runs every residual block of both backbones
+    as one hand-written kernel (models/fused_inference.py); 'auto' and
+    'off' run the library convs, as 'auto' does in the JAX package.
     Runs on ``device`` (the GPU unless ``device="cpu"``), where the model
     must already be. Returns per-step logits (B, T, classes); the last step
     is the prediction.
     """
     frames, frames_small = _on_model_device(model, device, frames, frames_small)
-    _, pooled, roll = glance_policy_actions(model, frames_small)
-    return _focus_and_classify(model, frames, pooled, roll["actions"])
+    use_fused = fused_enabled(fused)
+    if use_fused:
+        fmap, pooled = fused_glance(model, frames_small)
+        roll = model.policy_rollout(fmap)
+    else:
+        _, pooled, roll = glance_policy_actions(model, frames_small)
+    return _focus_and_classify(model, frames, pooled, roll["actions"], use_fused)
 
 
 @torch.inference_mode()

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``adafocus_torch/build/`` at first use and loaded with ``ctypes``; the
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here includes PyTorch's
-headers, which keeps a build to seconds.
+library's file name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
+never loaded. Nothing here includes PyTorch's headers, which keeps a build
+to seconds.
 """
 
 from __future__ import annotations
@@ -37,6 +38,16 @@ SIGNATURES = {
         [_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int,
          _c_ptr],
     ),
+    # x, w_exp, b_exp, w_dw, b_dw, w_prj, b_prj, out, n, h, w, cin, chid,
+    # cout, stride, expand, use_res, th, tw, g, ch, elem_size, stream
+    "fused_inv_residual": (
+        "fused_inv_residual", [_c_ptr] * 8 + [_c_ll] + [_c_int] * 13 + [_c_ptr],
+    ),
+    # x, w1, b1, w2, b2, w3, b3, wd, bd, out, n, h, w, cin, chid, cout,
+    # stride, mode, th, tw, g, elem_size, stream
+    "fused_bottleneck": (
+        "fused_bottleneck", [_c_ptr] * 10 + [_c_ll] + [_c_int] * 11 + [_c_ptr],
+    ),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -54,6 +65,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

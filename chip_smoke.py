@@ -10,22 +10,28 @@ Phases, each raising on failure:
   2. builds every CUDA kernel of the port from ``adafocus_torch/csrc``;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it, plus edge and odd shapes (patch
-     extraction is a copy: bit-identical), and times kernel, plain version
-     and a library yardstick with CUDA events;
+     extraction is a copy: bit-identical; the fused blocks at every distinct
+     block shape of the flagship in float32 and bf16, at N=4 and, in bf16,
+     at N=1024), and times kernel, plain version and a library yardstick
+     with CUDA events;
   4. drives the flagship deployment forward (``models.gfv.inference``, bf16,
-     B=2, T=16, full depth and width, weights from a seeded generator) with
-     every kernel's launch count set to 0 just before and read just after;
-     checks the logits' shape and finiteness, and bf16 against float32 on
-     the same weights with the float32 greedy actions injected;
-  5. times the flagship forward at B=64, T=16, bf16 (videos/s, three runs)
-     and each of its five phases.
+     B=2, T=16, full depth and width, weights from a seeded generator) on
+     both backbone paths, library convs (``fused="auto"``) and fused blocks
+     (``fused="on"``), each with every kernel's launch count set to 0 just
+     before and read just after; checks the logits' shape and finiteness,
+     bf16 against float32 on the same weights with the float32 greedy
+     actions injected, and fused against unfused in bf16 and in float32;
+  5. times the flagship forward at B=64, T=16, bf16 on both paths
+     (videos/s, three runs each) and each of its five phases.
 
-Prints one JSON line per kernel table, then as its last line
+Prints the per-shape table of the fused blocks and the kernel table as JSON
+lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -37,7 +43,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 SEED = 0
 # bf16 against float32 on injected actions: max|d| / max|f32| of the logits
 BF16_REL_TOL = 3e-2
+# fused blocks against unfused library convs, float32 with TF32 off: the
+# two differ by where BatchNorm is applied and by summation order
+FUSED_F32_REL_TOL = 1e-3
+# a fused-block kernel against its plain version, max|d| / max|plain|:
+# float32 differs by summation order only; in bf16 a hidden value whose
+# rounding flips moves by one bf16 ulp
+BLOCK_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate (NVIDIA data sheet)
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak (data sheet)
+FUSED_LAUNCHES = {"extract_patches": 1, "fused_inverted_residual": 17,
+                  "fused_bottleneck": 16}
 
 
 def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -132,70 +148,321 @@ def check_patch_kernel(device) -> dict:
     }
 
 
-def flagship_forward(device) -> dict:
-    """Phase 4: the main path once in bf16 with launch counts, then bf16
-    against float32 on the same weights and injected actions."""
+def _block_shapes(model) -> dict:
+    """The distinct residual blocks of the flagship's two backbones, in
+    forward order: {kernel name: [{block, module, key, h, launches}]}, where
+    ``key`` = (H, Cin, Chid, Cout, stride, expand or downsample) and
+    ``launches`` counts the blocks of that shape in one forward."""
+    from adafocus_torch.ops.fused_blocks import out_size
+
+    cfg = model.cfg
+    found = {"fused_inverted_residual": {}, "fused_bottleneck": {}}
+    h = out_size(cfg.glance_size, 2)                 # after the stem
+    for name in model.glancer.block_names:
+        blk = getattr(model.glancer, name)
+        stride, expand = blk.dw.conv.stride[0], blk.expand is not None
+        key = (h, blk.dw.conv.in_channels if not expand else blk.expand.conv.in_channels,
+               blk.dw.conv.out_channels, blk.project.conv.out_channels, stride, expand)
+        found["fused_inverted_residual"].setdefault(
+            key, {"block": f"glancer.{name}", "module": blk, "launches": 0})["launches"] += 1
+        h = out_size(h, stride)
+    h = out_size(out_size(cfg.patch_size, 2), 2)     # stem, then the max-pool
+    for name in model.focuser.block_names:
+        blk = getattr(model.focuser, name)
+        stride = blk.conv2.conv.stride[0]
+        key = (h, blk.conv1.conv.in_channels, blk.conv1.conv.out_channels,
+               blk.conv3.conv.out_channels, stride, blk.down is not None)
+        found["fused_bottleneck"].setdefault(
+            key, {"block": f"focuser.{name}", "module": blk, "launches": 0})["launches"] += 1
+        h = out_size(h, stride)
+    return {k: [dict(v, key=key) for key, v in d.items()] for k, d in found.items()}
+
+
+def _randomize_bn(module, gen):
+    """Random BatchNorm scale, bias and running statistics, so that folded
+    biases are not zero (a fresh model's are)."""
+    import torch
+
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.5, 0.5),
+                              (m.running_mean, -0.5, 0.5), (m.running_var, 0.5, 1.5)):
+                t.data.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+    return module
+
+
+def _rel_err(got, want) -> tuple:
+    d = (got.float() - want.float()).abs().max().item()
+    return d / want.float().abs().max().item(), d
+
+
+def _block_fns(kernel: str):
+    from adafocus_torch.ops import fused_blocks as fb
+
+    if kernel == "fused_inverted_residual":
+        return (fb.fold_inv_residual, fb.fused_inverted_residual,
+                fb.fused_inverted_residual_reference)
+    return fb.fold_bottleneck, fb.fused_bottleneck, fb.fused_bottleneck_reference
+
+
+def _block_args(kernel: str, module) -> dict:
+    if kernel == "fused_inverted_residual":
+        return {"stride": module.dw.conv.stride[0], "use_res": module.use_res}
+    return {"stride": module.conv2.conv.stride[0], "use_res": True}
+
+
+def _check_block(kernel, module, h, cin, gen, device, use_res=None, label=""):
+    """One block's kernel against its plain version at N=4 in float32 and
+    bf16, the block's BatchNorm randomised. Returns the largest |d|."""
+    import torch
+
+    fold, run, plain = _block_fns(kernel)
+    blk = _randomize_bn(copy.deepcopy(module).float().cpu(), gen).to(device)
+    args = _block_args(kernel, blk)
+    if use_res is not None:
+        args["use_res"] = use_res
+    worst, rels = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        params = fold(blk, dtype)
+        x = torch.randn((4, h, h, cin), generator=gen).to(device, dtype)
+        got = run(x, params, **args)
+        want = plain(x, params, **args)
+        torch.cuda.synchronize()
+        rels[name], d = _rel_err(got, want)
+        if got.shape != want.shape or not rels[name] <= BLOCK_TOL[name]:
+            raise AssertionError(f"{kernel} {label} {name} differs from its plain "
+                                 f"version: {rels[name]} > {BLOCK_TOL[name]}")
+        worst = max(worst, d)
+    print(f"{kernel} {label} N=4 {h}x{h}x{cin} -> {tuple(got.shape[1:])} {args}: "
+          f"max|d|/max|plain| {rels} (limits {BLOCK_TOL})", flush=True)
+    return worst
+
+
+def _block_cost(kernel: str, key, n: int) -> tuple:
+    """(bytes, flops) that one call must move and do: x read once, out and
+    the folded weights once (bf16 matrices, float32 depthwise and biases)."""
+    from adafocus_torch.ops.fused_blocks import out_size
+
+    h, cin, chid, cout, stride, flag = key
+    ho = out_size(h, stride)
+    px, po = n * h * h, n * ho * ho
+    if kernel == "fused_inverted_residual":
+        weights = 2 * (cin * chid * flag + chid * cout) + 4 * (9 * chid + 2 * chid + cout)
+        macs = px * cin * chid * flag + po * chid * (9 + cout)
+    else:
+        weights = 2 * (cin * chid + 9 * chid * chid + chid * cout + cin * cout * flag)
+        weights += 4 * (2 * chid + cout * (1 + flag))
+        macs = px * cin * chid + po * chid * (9 * chid + cout) + po * cin * cout * flag
+    return 2 * (px * cin + po * cout) + weights, 2 * macs
+
+
+def check_fused_blocks(model16, device) -> tuple:
+    """Phase 3 for the two fused-block kernels: each against its plain
+    version at every distinct flagship block shape (N=4, float32 and bf16,
+    BatchNorm randomised), at an odd stride-2 shape (9^2 -> 5^2) and with
+    ``use_res=False``; then each shape timed at the main path's N=1024 in
+    bf16 (kernel, plain version, and the port's unfused library-conv block
+    as the yardstick) and checked against the plain version there too.
+    Returns (kernel rows without ``launches``, per-shape rows)."""
+    import torch
+
+    from adafocus_torch.models.mobilenet import InvertedResidual
+    from adafocus_torch.models.resnet import Bottleneck
+    from adafocus_torch.ops.fused_blocks import plan_bottleneck, plan_inv_residual
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 3)
+    shapes = _block_shapes(model16)
+    worst = {k: 0.0 for k in shapes}
+    for kernel, entries in shapes.items():
+        for e in entries:
+            h, cin = e["key"][:2]
+            worst[kernel] = max(worst[kernel], _check_block(
+                kernel, e["module"], h, cin, gen, device, label=e["block"]))
+    extras = [
+        ("fused_inverted_residual", InvertedResidual(8, 12, 2, 6), 9, 8, None, "odd 9->5"),
+        ("fused_inverted_residual", InvertedResidual(16, 16, 2, 1), 9, 16, None,
+         "odd 9->5, no expand"),
+        ("fused_bottleneck", Bottleneck(64, 16, 2, True), 9, 64, None, "odd 9->5"),
+    ]
+    ir1, bn1, bn_down = (shapes["fused_inverted_residual"][2], shapes["fused_bottleneck"][1],
+                         shapes["fused_bottleneck"][2])
+    extras += [
+        ("fused_inverted_residual", ir1["module"], ir1["key"][0], ir1["key"][1], False,
+         f"{ir1['block']} use_res=False"),
+        ("fused_bottleneck", bn1["module"], bn1["key"][0], bn1["key"][1], False,
+         f"{bn1['block']} use_res=False"),
+        ("fused_bottleneck", bn_down["module"], bn_down["key"][0], bn_down["key"][1], False,
+         f"{bn_down['block']} use_res=False"),
+    ]
+    for kernel, module, h, cin, use_res, label in extras:
+        worst[kernel] = max(worst[kernel], _check_block(
+            kernel, module.to(device), h, cin, gen, device, use_res, label))
+
+    n = 1024
+    per_shape = []
+    for kernel, entries in shapes.items():
+        fold, run, plain = _block_fns(kernel)
+        plan_fn = plan_inv_residual if kernel == "fused_inverted_residual" else plan_bottleneck
+        for e in entries:
+            h, cin, chid, cout, stride, flag = e["key"]
+            module = e["module"]
+            params, args = fold(module, torch.bfloat16), _block_args(kernel, module)
+            x = torch.randn((n, h, h, cin), generator=gen).to(device, torch.bfloat16)
+            rel, d = _rel_err(run(x, params, **args), plain(x, params, **args))
+            if not rel <= BLOCK_TOL["bfloat16"]:
+                raise AssertionError(f"{kernel} {e['block']} N={n} bf16: {rel}")
+            worst[kernel] = max(worst[kernel], d)
+            x_nchw = x.permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                ms = _time_ms(lambda: run(x, params, **args), iters=10, warmup=2)
+                plain_ms = _time_ms(lambda: plain(x, params, **args), iters=5, warmup=1)
+                library_ms = _time_ms(lambda: module(x_nchw), iters=10, warmup=2)
+            moved, flops = _block_cost(kernel, e["key"], n)
+            bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+            row = {"kernel": kernel, "block": e["block"], "launches": e["launches"],
+                   "shape": f"{h}x{h}x{cin} -> {chid} -> {cout} s{stride}",
+                   "plan": plan_fn(h, h, cin, chid, cout, stride, flag, 2)._asdict(),
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                   "bytes": moved, "flops": flops, "max_rel_err": rel}
+            per_shape.append(row)
+            print(f"{kernel} {e['block']} x{e['launches']} N={n} bf16 {row['shape']}: "
+                  f"kernel {ms!r} ms, plain {plain_ms!r} ms, library block "
+                  f"{library_ms!r} ms, bound {row['bound_ms']!r} ms ({row['bound_by']}); "
+                  f"max|d|/max|plain| {rel!r}", flush=True)
+            del x, x_nchw
+            torch.cuda.empty_cache()
+
+    sources = {"fused_inverted_residual": ("fused_inv_residual.cu", 247),
+               "fused_bottleneck": ("fused_bottleneck.cu", 397)}
+    rows = []
+    for kernel, (src, line) in sources.items():
+        mine = [r for r in per_shape if r["kernel"] == kernel]
+        total = {k: sum(r["launches"] * r[k] for r in mine)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(r["launches"] * r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
+        rows.append({
+            "name": kernel, "route": "cuda", "source": f"adafocus_torch/csrc/{src}",
+            "replaces": f"adafocus_tpu/ops/fused_blocks.py:{line}",
+            "max_abs_err": worst[kernel], **total,
+            "bound_by": "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations",
+            "shape": f"every block of one flagship forward, N={n} bf16, summed",
+        })
+    return rows, per_shape
+
+
+def _fused_with_actions(model, frames, small, actions):
+    """The fused forward with injected actions, composed from the phases."""
+    import torch
+
+    from adafocus_torch.models.fused_inference import fused_focus, fused_glance
+    from adafocus_torch.models.gfv import extract_for_frames, fuse_and_classify
+
+    cfg = model.cfg
+    b, t = small.shape[:2]
+    with torch.inference_mode():
+        _, pooled = fused_glance(model, small)
+        patches = extract_for_frames(frames, actions, cfg.image_size, cfg.patch_size)
+        local = fused_focus(model, patches).reshape(b, t, -1)
+        return fuse_and_classify(model, pooled, local)
+
+
+def _launch_counts(reset: bool = False) -> dict:
+    from adafocus_torch.ops.fused_blocks import fused_bottleneck, fused_inverted_residual
+    from adafocus_torch.ops.patch import extract_patches
+
+    fns = {"extract_patches": extract_patches,
+           "fused_inverted_residual": fused_inverted_residual,
+           "fused_bottleneck": fused_bottleneck}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def flagship_forward(model16, device) -> dict:
+    """Phase 4: the main path once in bf16 on each backbone path, with
+    launch counts; then, on the same weights and injected float32 greedy
+    actions, bf16 against float32 and fused against unfused."""
     import torch
 
     from adafocus_torch.models.gfv import (
-        GFV, flagship, glance_policy_actions, inference, inference_with_actions,
+        GFV, glance_policy_actions, inference, inference_with_actions,
     )
-    from adafocus_torch.ops.patch import extract_patches
+    from adafocus_torch.models.fused_inference import fused_glance
 
     # float32 means float32: no TF32 in cuDNN convs or cuBLAS matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg16 = flagship()
+    cfg16 = model16.cfg
     cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
     b, t, s, g = 2, cfg16.num_frames, cfg16.image_size, cfg16.glance_size
     gen = torch.Generator().manual_seed(SEED + 1)
     frames = torch.randn((b, t, s, s, 3), generator=gen).to(device)
     small = torch.randn((b, t, g, g, 3), generator=gen).to(device)
-    model16 = GFV(cfg16, device=device, generator=torch.Generator().manual_seed(SEED))
     frames16, small16 = frames.bfloat16(), small.bfloat16()
 
-    extract_patches.launches = 0
-    logits = inference(model16, frames16, small16, device=device)
-    torch.cuda.synchronize()
-    launches = {"extract_patches": extract_patches.launches}
-    if tuple(logits.shape) != (b, t, cfg16.num_classes):
-        raise AssertionError(f"logits shape {tuple(logits.shape)}")
-    if not torch.isfinite(logits.float()).all():
-        raise AssertionError("bf16 logits are not finite")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = {}
+    for fused in ("auto", "on"):
+        _launch_counts(reset=True)
+        logits = inference(model16, frames16, small16, device=device, fused=fused)
+        torch.cuda.synchronize()
+        launches[fused] = _launch_counts()
+        print(f"flagship B={b} T={t} fused={fused!r}: launches {launches[fused]}",
+              flush=True)
+        if tuple(logits.shape) != (b, t, cfg16.num_classes):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"bf16 logits (fused={fused!r}) are not finite")
+    if launches["auto"]["extract_patches"] < 1:
+        raise AssertionError("kernel extract_patches was not launched on the main path")
+    if launches["on"] != FUSED_LAUNCHES:
+        raise AssertionError(f"fused path launches {launches['on']}, want {FUSED_LAUNCHES}")
 
     model32 = GFV(cfg32, device=device, generator=torch.Generator().manual_seed(SEED))
     with torch.inference_mode():
         roll32 = glance_policy_actions(model32, small)[2]
         roll16 = glance_policy_actions(model16, small16)[2]
-    logits32 = inference_with_actions(model32, frames, small, roll32["actions"],
-                                      device=device)
-    logits16 = inference_with_actions(model16, frames16, small16,
-                                      roll32["actions"], device=device)
+        roll16f = model16.policy_rollout(fused_glance(model16, small16)[0])
+    acts = roll32["actions"]
+    logits32 = inference_with_actions(model32, frames, small, acts, device=device)
+    logits16 = inference_with_actions(model16, frames16, small16, acts, device=device)
+    logits32f = _fused_with_actions(model32, frames, small, acts)
+    logits16f = _fused_with_actions(model16, frames16, small16, acts)
     torch.cuda.synchronize()
-    if not torch.isfinite(logits32).all():
-        raise AssertionError("float32 logits are not finite")
-    rel = ((logits16.float() - logits32).abs().max()
-           / logits32.abs().max()).item()
+    for name, v in (("float32", logits32), ("fused float32", logits32f)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{name} logits are not finite")
+    checks = [("bf16 vs f32", logits16, logits32, BF16_REL_TOL),
+              ("fused bf16 vs f32", logits16f, logits32, BF16_REL_TOL),
+              ("fused bf16 vs unfused bf16", logits16f, logits16, BF16_REL_TOL),
+              ("fused f32 vs unfused f32 (TF32 off)", logits32f, logits32,
+               FUSED_F32_REL_TOL)]
     agree = (roll16["action_idx"] == roll32["action_idx"]).float().mean().item()
-    print(f"flagship B={b} T={t}: logits {tuple(logits.shape)} finite; "
-          f"bf16 vs f32 on injected actions max|d|/max|f32| = {rel!r} "
-          f"(limit {BF16_REL_TOL}); greedy action agreement bf16/f32 = "
-          f"{agree!r}", flush=True)
-    if not rel <= BF16_REL_TOL:
-        raise AssertionError(f"bf16 logits off f32 by {rel} > {BF16_REL_TOL}")
+    agree_f = (roll16f["action_idx"] == roll16["action_idx"]).float().mean().item()
+    print(f"flagship B={b} T={t}: greedy action agreement bf16/f32 = {agree!r}, "
+          f"fused/unfused bf16 = {agree_f!r}", flush=True)
+    for name, got, want, tol in checks:
+        rel = _rel_err(got, want)[0]
+        print(f"flagship B={b} T={t} on injected actions, {name}: "
+              f"max|d|/max|ref| = {rel!r} (limit {tol})", flush=True)
+        if not rel <= tol:
+            raise AssertionError(f"{name}: logits differ by {rel} > {tol}")
     del model32
-    return {"launches": launches, "model16": model16}
+    return {"launches": launches}
 
 
-def flagship_throughput(model16, device, b: int = 64):
-    """Phase 5: the bf16 flagship forward at B=64, T=16. Returns (videos/s
-    of three timed runs, mean device ms of each phase over five forwards,
-    timed by CUDA events between the phases)."""
+def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 10):
+    """Phase 5: the bf16 flagship forward at B=64, T=16 on one backbone path.
+    Returns (videos/s of three timed runs, mean device ms of each phase over
+    five forwards, timed by CUDA events between the phases)."""
     import torch
 
+    from adafocus_torch.models.fused_inference import fused_focus, fused_glance
     from adafocus_torch.models.gfv import (
         extract_for_frames, fuse_and_classify, inference,
     )
@@ -208,30 +475,34 @@ def flagship_throughput(model16, device, b: int = 64):
                          dtype=torch.bfloat16)
     small = torch.randn((b, t, g, g, 3), generator=gen, device=device,
                         dtype=torch.bfloat16)
-    vps = [b / (_time_ms(lambda: inference(model16, frames, small, device=device),
-                         iters=10, warmup=3) / 1e3) for _ in range(3)]
+    vps = [b / (_time_ms(lambda: inference(model16, frames, small, device=device,
+                                           fused=fused),
+                         iters=iters, warmup=3) / 1e3) for _ in range(3)]
 
+    on = fused == "on"
+    glance = (lambda x: fused_glance(model16, x)) if on else model16.glance
+    focus = (lambda x: fused_focus(model16, x)) if on else model16.focus
     names = ("glance", "policy", "extract", "focus", "classify")
     phases = dict.fromkeys(names, 0.0)
-    iters = 5
+    n_timed = 5
     with torch.inference_mode():
-        for i in range(iters + 1):   # the first forward is warm-up
+        for i in range(n_timed + 1):   # the first forward is warm-up
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
             ev[0].record()
-            fmap, pooled = model16.glance(small)
+            fmap, pooled = glance(small)
             ev[1].record()
             roll = model16.policy_rollout(fmap)
             ev[2].record()
             patches = extract_for_frames(frames, roll["actions"], s, cfg.patch_size)
             ev[3].record()
-            local = model16.focus(patches).reshape(b, t, -1)
+            local = focus(patches).reshape(b, t, -1)
             ev[4].record()
             fuse_and_classify(model16, pooled, local)
             ev[5].record()
             torch.cuda.synchronize()
             if i:
                 for k, name in enumerate(names):
-                    phases[name] += ev[k].elapsed_time(ev[k + 1]) / iters
+                    phases[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
     return vps, phases
 
 
@@ -253,15 +524,31 @@ def main() -> int:
     build_s = _kernels.build()
     print(f"kernels built in {build_s:.2f} s", flush=True)
     for name, log in _kernels.build_logs.items():
-        print(f"nvcc {name}:\n{log.strip()}", flush=True)
+        # -Xptxas -v: one "Used N registers" and one spill line per kernel
+        usage = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"nvcc {name}: {'; '.join(usage)}", flush=True)
 
-    row = check_patch_kernel(device)
-    fwd = flagship_forward(device)
-    row["launches"] = fwd["launches"]["extract_patches"]
-    vps, phases = flagship_throughput(fwd["model16"], device)
-    print(f"flagship bf16 B=64 T=16: videos/s {vps!r}; phase ms "
-          f"{json.dumps(phases)} ({card})", flush=True)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    from adafocus_torch.models.gfv import GFV, flagship
+
+    model16 = GFV(flagship(), device=device,
+                  generator=torch.Generator().manual_seed(SEED))
+    rows = [check_patch_kernel(device)]
+    fused_rows, per_shape = check_fused_blocks(model16, device)
+    rows += fused_rows
+    launches = flagship_forward(model16, device)["launches"]
+    # each kernel's count from the run of its own path: the library-conv
+    # path (slice 1) for extraction, the fused path for the blocks
+    rows[0]["launches"] = launches["auto"]["extract_patches"]
+    for row in fused_rows:
+        row["launches"] = launches["on"][row["name"]]
+    for fused, iters in (("auto", 10), ("on", 5)):
+        vps, phases = flagship_throughput(model16, device, fused, iters=iters)
+        print(f"flagship bf16 B=64 T=16 fused={fused!r}: videos/s {vps!r}; phase ms "
+              f"{json.dumps(phases)} ({card})", flush=True)
+    print(json.dumps({"fused_shapes": per_shape}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

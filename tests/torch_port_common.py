@@ -45,6 +45,14 @@ def jax_variables(cfg: GFVConfig, seed: int = 0):
     """(flax GFV, {'params', 'batch_stats'} as numpy trees, BN randomised)."""
     model = GFV(cfg)
     state = create_train_state(model, jax.random.key(seed), batch_size=1)
+    return model, randomize_bn(
+        {"params": state.params, "batch_stats": state.batch_stats}, seed)
+
+
+def randomize_bn(variables, seed: int):
+    """Flax {'params', 'batch_stats'} -> numpy trees in which every
+    BatchNorm scale, bias, mean and var is drawn uniformly from a seeded
+    generator."""
     rs = np.random.RandomState(seed)
     ranges = {"scale": (0.5, 1.5), "bias": (-0.5, 0.5), "mean": (-0.5, 0.5),
               "var": (0.5, 1.5)}
@@ -56,9 +64,9 @@ def jax_variables(cfg: GFVConfig, seed: int = 0):
             v = rs.uniform(lo, hi, v.shape).astype(np.float32)
         return v
 
-    params = _map_tree(randomize, unfreeze(state.params))
-    stats = _map_tree(randomize, unfreeze(state.batch_stats))
-    return model, {"params": params, "batch_stats": stats}
+    params = _map_tree(randomize, unfreeze(variables["params"]))
+    stats = _map_tree(randomize, unfreeze(variables["batch_stats"]))
+    return {"params": params, "batch_stats": stats}
 
 
 def port_config(cfg: GFVConfig) -> tgfv.GFVConfig:
