@@ -30,24 +30,27 @@ NVCC_FLAGS = (
 )
 
 _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# launcher signatures: (function name, argtypes); every launcher returns the
-# cudaError_t of its launch as an int
+# each library's functions: {function name: argtypes}; every function
+# returns an int (a launcher: the cudaError_t of its launch)
 SIGNATURES = {
-    "patch_extract": (
-        "patch_extract",
-        [_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int,
-         _c_ptr],
-    ),
-    # x, w_exp, b_exp, w_dw, b_dw, w_prj, b_prj, out, n, h, w, cin, chid,
-    # cout, stride, expand, use_res, th, tw, g, ch, elem_size, stream
-    "fused_inv_residual": (
-        "fused_inv_residual", [_c_ptr] * 8 + [_c_ll] + [_c_int] * 13 + [_c_ptr],
-    ),
-    # x, w1, b1, w2, b2, w3, b3, wd, bd, out, n, h, w, cin, chid, cout,
-    # stride, mode, th, tw, g, elem_size, stream
-    "fused_bottleneck": (
-        "fused_bottleneck", [_c_ptr] * 10 + [_c_ll] + [_c_int] * 11 + [_c_ptr],
-    ),
+    "patch_extract": {
+        "patch_extract": [_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,
+                          _c_int, _c_ptr],
+    },
+    "fused_inv_residual": {
+        # x, w_exp, b_exp, w_dw, b_dw, w_prj, b_prj, out, n, h, w, cin, chid,
+        # cout, stride, expand, use_res, th, tw, g, ch, ns, elem_size, stream
+        "fused_inv_residual": [_c_ptr] * 8 + [_c_ll] + [_c_int] * 14 + [_c_ptr],
+        # cout, ns, elem_size, smem -> blocks per SM (0 on error)
+        "fused_inv_residual_blocks_per_sm": [_c_int] * 4,
+    },
+    "fused_bottleneck": {
+        # x, w1, b1, w2, b2, w3, b3, wd, bd, out, n, h, w, cin, chid, cout,
+        # stride, mode, th, tw, g, ns, stages, depth, wide, elem_size, stream
+        "fused_bottleneck": [_c_ptr] * 10 + [_c_ll] + [_c_int] * 15 + [_c_ptr],
+        # chid, ns, wide, elem_size, smem -> blocks per SM (0 on error)
+        "fused_bottleneck_blocks_per_sm": [_c_int] * 5,
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -109,9 +112,9 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

@@ -23,11 +23,14 @@ tensor. The TPU kernels' Mosaic shape (full-width stride-2 outputs
 subsampled outside, odd-width padding, the 128-lane group chooser) is not
 carried over: the kernels compute only the strided outputs, and the tile
 each block owns comes from ``plan_inv_residual`` / ``plan_bottleneck``.
+bf16 runs on the tensor cores (wgmma, two warpgroups a block); float32
+keeps its CUDA-core product, so that float32 stays the exact yardstick.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -36,12 +39,22 @@ from torch.nn import functional as F
 
 from adafocus_torch.ops import _kernels
 
-# shared-memory layout of the kernels (csrc/fused_gemm.cuh): the product's
-# staging tiles, then the block's own buffers
+# shared-memory layout of the float32 kernels (csrc/fused_gemm.cuh
+# block_gemm): the product's staging tiles, then the block's own buffers
 STAGE_BYTES = (32 * 68 + 32 * 64) * 4
 SMEM_MAX = 232448              # dynamic shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 113 * 1024   # at most this, and two blocks fit on one SM
-_BLOCK_OVERHEAD = 1 << 18      # a block's fixed cost in the planner, in MACs
+_BLOCK_OVERHEAD = 1 << 18      # a block's fixed cost in the float32 planner, in MACs
+
+# the bf16 kernels (csrc/fused_gemm.cuh namespace tc, and the kCH / kBN3 of
+# each .cu): the ring's stages (least and most) and depths, A-row padding,
+# the hidden chunk, the bottleneck's conv3 width per warpgroup
+MIN_STAGES, MAX_STAGES, RING_DEPTHS, A_PAD = 3, 8, (32, 64), 8
+TC_CHUNK, BN3 = 64, 128
+BN2_SIZES = (16, 32, 64, 128, 256)                    # bottleneck_tc_kernel instances
+BNP_SIZES = (16, 24, 32, 64, 96, 128, 160, 256)       # inv_residual_tc_kernel instances
+SM_COUNT = 132                 # H100 SXM
+SMEM_PER_SM = 233472           # shared memory of one SM; each block also holds 1 KiB
 
 
 @torch.no_grad()
@@ -201,7 +214,8 @@ def fused_bottleneck_reference(x: torch.Tensor, p: BottleneckParams,
 
 # ---------------------------------------------------------------------------
 # Plans: the output tile (th x tw), the samples (g) and, for the inverted
-# residual, the hidden-channel chunk (ch) of one CUDA block.
+# residual, the hidden-channel chunk (ch) of one CUDA block; for bf16 also
+# how the two warpgroups share the products (ns).
 # ---------------------------------------------------------------------------
 
 
@@ -209,8 +223,12 @@ class Plan(NamedTuple):
     th: int
     tw: int
     g: int       # samples per block (> 1 only when a tile is the whole map)
-    ch: int      # hidden channels per chunk (the bottleneck keeps them all)
+    ch: int      # hidden channels per chunk (the float32 bottleneck keeps them all)
     smem: int    # dynamic shared memory, bytes
+    ns: int = 1      # bf16: the warpgroups split the wide product's width (2) or its rows (1)
+    stages: int = 0  # bf16 bottleneck: the ring's stages
+    depth: int = 0   # bf16 bottleneck: the depth of a ring stage (32 or 64)
+    wide: int = 0    # bf16 bottleneck: one hidden chunk of every channel (1) or of TC_CHUNK
 
 
 def _ceil_to(v: int, m: int) -> int:
@@ -232,6 +250,11 @@ def _tiles(size_out: int):
     return sorted({size_out, *(t for t in (4, 6, 7, 8, 12, 14, 16) if t < size_out)})
 
 
+def _tc_tiles(size_out: int):
+    """Tile sides of the bf16 plans, whose tiles hold at most 128 outputs."""
+    return sorted({size_out, *(t for t in (*range(1, 17), 24, 28, 32) if t < size_out)})
+
+
 def _pick(options):
     """The plan of least modelled cost per sample; a plan that leaves room
     for only one block per SM pays half again."""
@@ -243,9 +266,180 @@ def _pick(options):
     return min(options, key=cost)[1]
 
 
+def _fit(sizes, need: int) -> Optional[int]:
+    return next((v for v in sizes if need <= v), None)
+
+
+def _bn2(chid: int, ns: int) -> Optional[int]:
+    """conv2's width per warpgroup in the bf16 bottleneck (bn2_of)."""
+    return _fit(BN2_SIZES, -(-chid // ns))
+
+
+def _bnp(cout: int, ns: int) -> Optional[int]:
+    """The project's width per warpgroup in the bf16 inverted residual (bnp_of)."""
+    return _fit(BNP_SIZES, -(-cout // ns))
+
+
+def _align128(v: int) -> int:
+    return _ceil_to(v, 128)
+
+
+def _chunk(chid_p: int, wide: int) -> int:
+    """The bottleneck's hidden chunk (fused_bottleneck.cu chunk_of)."""
+    return chid_p if wide else TC_CHUNK
+
+
+def bottleneck_smem(g: int, rh: int, rw: int, chid: int, ns: int, stages: int,
+                    depth: int, wide: int) -> int:
+    """Shared memory of the bf16 bottleneck (fused_bottleneck.cu tc_layout):
+    the ring, one buffer for the h1 chunk or h2 (rows padded by A_PAD), a
+    zero row and the ring's mbarriers."""
+    mt, chid_p = 2 // ns, ns * _bn2(chid, ns)
+    cw, mt1 = _chunk(chid_p, wide), (mt if wide else 2)
+    a_tile = 64 * (depth + A_PAD) * 2
+    stage = max(mt1 * a_tile + depth * cw * 2, depth * chid_p * 2,
+                mt * a_tile + depth * ns * BN3 * 2)
+    h1 = g * rh * rw * (cw + A_PAD) * 2
+    h2 = 64 * mt * (chid_p + A_PAD) * 2
+    return (stages * stage + _align128(max(h1, h2)) + _align128((max(cw, chid_p) + A_PAD) * 2)
+            + _align128(MAX_STAGES * 8))
+
+
+def inv_residual_smem(g: int, rh: int, rw: int, cin: int, cout: int, expand: bool,
+                      ns: int) -> int:
+    """Shared memory of the bf16 inverted residual (fused_inv_residual.cu
+    tc_layout): the x region, the chunk's expand weights, the hidden, the
+    depthwise output, the chunk's project weights, a zero row, and each
+    output row's depthwise taps (two ints)."""
+    mr, cin_p, rows = g * rh * rw, _ceil_to(cin, 16), 64 * (2 // ns)
+    ldx = cin_p + A_PAD
+    return (_align128(mr * ldx * 2)
+            + (_align128(cin_p * TC_CHUNK * 2) + _align128(mr * (TC_CHUNK + A_PAD) * 2)
+               if expand else 0)
+            + _align128(rows * (TC_CHUNK + A_PAD) * 2)
+            + _align128(TC_CHUNK * ns * _bnp(cout, ns) * 2) + _align128(ldx * 2)
+            + _align128(rows * 2 * 4))
+
+
+# The bf16 planners' cost models, in SM cycles: least-squares fits to plans
+# of the flagship's block shapes timed on the H100 at N=1024
+# (``python3 -m adafocus_torch.time_plans``). A launch takes waves of SM_COUNT x
+# (blocks per SM).
+# Bottleneck, a block: tensor-core MACs (padded to the tiles) at 605 a
+# cycle, x re-read per hidden chunk at 4.8 bytes a cycle, 1026 cycles a
+# ring step (a barrier, a wait for the stage's copies, one for its
+# products), 86000 a block; a wave of two blocks an SM takes 1.2 times one.
+_BN_TC_RATE, _BN_X_RATE, _BN_STEP, _BN_BLOCK, _BN_TWO_BLOCKS = 605, 4.8, 1026, 86000, 1.2
+# Inverted residual, a wave of occ blocks an SM: occ x (tensor-core MACs at
+# 650 a cycle, depthwise MACs at 490, x region and output bytes at 0.89
+# cycles each) + 7818 cycles a hidden chunk.
+_IR_TC_RATE, _IR_CC_RATE, _IR_BYTE_CYCLES, _IR_CHUNK = 650, 490, 0.89, 7818
+
+
+def blocks_per_sm(smem: int, most: int) -> int:
+    """Blocks that fit on one SM by shared memory, at most `most`: the
+    blocks the kernel instance's registers allow (its __launch_bounds__)."""
+    return max(1, min(most, SMEM_PER_SM // (smem + 1024)))
+
+
+def _waves(n: int, g: int, tiles: int, occ: int) -> int:
+    """Waves of SM_COUNT x occ blocks for n samples, g a block, tiles a sample."""
+    return -(-(-(-n // g) * tiles) // (SM_COUNT * occ))
+
+
+def _tc_options(h_out: int, w_out: int, cap: int):
+    """(th, tw, g) with at most cap output rows in a block."""
+    for th in _tc_tiles(h_out):
+        for tw in _tc_tiles(w_out):
+            whole = th == h_out and tw == w_out
+            for g in range(1, cap // (th * tw) + 1) if whole else (1,):
+                if g * th * tw <= cap:
+                    yield th, tw, g
+
+
+def inv_residual_options(h, w, cin, chid, cout, stride, expand, n):
+    """Every bf16 plan of the block that fits, as (modelled cycles at n
+    samples, shared memory, plan)."""
+    h_out, w_out = out_size(h, stride), out_size(w, stride)
+    chunks, cin_p = -(-chid // TC_CHUNK), _ceil_to(cin, 16)
+    options = []
+    for ns in (1, 2):
+        bnp = _bnp(cout, ns)
+        if bnp is None:
+            continue
+        mt, most = 2 // ns, (3 if bnp <= 32 else 2 if bnp <= 96 else 1)
+        for th, tw, g in _tc_options(h_out, w_out, 64 * mt):
+            rh, rw = _region(th, stride, h), _region(tw, stride, w)
+            smem = inv_residual_smem(g, rh, rw, cin, cout, expand, ns)
+            if smem > SMEM_MAX:
+                continue
+            mr, mo = g * rh * rw, g * th * tw
+            tc = chunks * 64 * mt * ns * bnp * TC_CHUNK
+            if expand:
+                tc += chunks * _ceil_to(-(-mr // 64), 2) * 64 * TC_CHUNK * cin_p
+            cc = chunks * 64 * mt * TC_CHUNK * 9
+            occ = blocks_per_sm(smem, most)
+            wave = (occ * (tc / _IR_TC_RATE + cc / _IR_CC_RATE
+                           + (mr * cin + mo * cout) * 2 * _IR_BYTE_CYCLES)
+                    + chunks * _IR_CHUNK)
+            tiles = -(-h_out // th) * -(-w_out // tw)
+            options.append((_waves(n, g, tiles, occ) * wave, smem,
+                            Plan(th, tw, g, TC_CHUNK, smem, ns)))
+    return options
+
+
+def bottleneck_options(h, w, cin, chid, cout, stride, downsample, n):
+    """Every bf16 plan of the block that fits, as (modelled cycles at n
+    samples, shared memory, plan)."""
+    h_out, w_out = out_size(h, stride), out_size(w, stride)
+    options = []
+    for ns, depth, wide in itertools.product((1, 2), RING_DEPTHS, (0, 1)):
+        bn2 = _bn2(chid, ns)
+        if bn2 is None or (wide and bn2 < 64):
+            continue
+        mt, chid_p, cin_p = 2 // ns, ns * bn2, _ceil_to(cin, depth)
+        cw = _chunk(chid_p, wide)
+        chunks, mt1 = -(-chid // cw), (mt if wide else 2)
+        tiles3 = -(-cout // (ns * BN3))
+        ks3 = -(-chid_p // depth) + (cin_p // depth if downsample else 0)
+        for th, tw, g in _tc_options(h_out, w_out, 64 * mt):
+            rh, rw = _region(th, stride, h), _region(tw, stride, w)
+
+            def smem_at(s):
+                return bottleneck_smem(g, rh, rw, chid, ns, s, depth, wide)
+
+            if smem_at(MIN_STAGES) > SMEM_MAX:
+                continue
+            most = 2 if bn2 <= 64 else 1   # bottleneck_tc_kernel's __launch_bounds__
+            occ = blocks_per_sm(smem_at(MIN_STAGES), most)
+            # as many stages as keep the blocks per SM
+            stages = max(s for s in range(MIN_STAGES, MAX_STAGES + 1)
+                         if smem_at(s) <= SMEM_MAX and blocks_per_sm(smem_at(s), most) == occ)
+            smem = smem_at(stages)
+            mr = g * rh * rw
+            groups1 = -(-(-(-mr // 64)) // mt1)
+            tc = chunks * (groups1 * mt1 * 64 * cw * cin_p + 9 * cw * 64 * mt * chid_p)
+            tc += tiles3 * 64 * mt * ns * BN3 * ks3 * depth
+            steps = chunks * (groups1 * cin_p // depth + 9 * cw // depth) + tiles3 * ks3
+            per_block = (tc / _BN_TC_RATE + chunks * mr * cin * 2 / _BN_X_RATE
+                         + steps * _BN_STEP + _BN_BLOCK)
+            tiles = -(-h_out // th) * -(-w_out // tw)
+            wave = per_block * (1.0 if occ == 1 else _BN_TWO_BLOCKS)
+            options.append((_waves(n, g, tiles, occ) * wave, smem,
+                            Plan(th, tw, g, TC_CHUNK, smem, ns, stages, depth, wide)))
+    return options
+
+
 @functools.lru_cache(maxsize=None)
 def plan_inv_residual(h: int, w: int, cin: int, chid: int, cout: int, stride: int,
-                      expand: bool, itemsize: int) -> Plan:
+                      expand: bool, itemsize: int, n: int = 1024) -> Plan:
+    """The block's plan: bf16 (itemsize 2) by the tensor-core cost model at
+    n samples, float32 by padded MACs per sample."""
+    if itemsize == 2:
+        options = inv_residual_options(h, w, cin, chid, cout, stride, expand, n)
+        if not options:
+            raise ValueError("no bf16 tile of this block fits in shared memory")
+        return min(options)[2]
     h_out, w_out = out_size(h, stride), out_size(w, stride)
     options = []
     for th in _tiles(h_out):
@@ -271,7 +465,15 @@ def plan_inv_residual(h: int, w: int, cin: int, chid: int, cout: int, stride: in
 
 @functools.lru_cache(maxsize=None)
 def plan_bottleneck(h: int, w: int, cin: int, chid: int, cout: int, stride: int,
-                    downsample: bool, itemsize: int) -> Plan:
+                    downsample: bool, itemsize: int, n: int = 1024) -> Plan:
+    """The block's plan: bf16 (itemsize 2) by the tensor-core cost model at
+    n samples, float32 by padded MACs per sample."""
+    if itemsize == 2:
+        options = bottleneck_options(h, w, cin, chid, cout, stride, downsample, n)
+        if not options:
+            raise ValueError(f"no bf16 plan for a bottleneck {chid} hidden channels wide "
+                             f"(at most {2 * BN2_SIZES[-1]})")
+        return min(options)[2]
     h_out, w_out = out_size(h, stride), out_size(w, stride)
     options = []
     for th in _tiles(h_out):
@@ -289,6 +491,34 @@ def plan_bottleneck(h: int, w: int, cin: int, chid: int, cout: int, stride: int,
                         + _gemm_macs(mo, cout, chid + (cin if downsample else 0)))
                 options.append((tiles * macs / g, Plan(th, tw, g, chid, smem)))
     return _pick(options)
+
+
+def pack_tiles(w: torch.Tensor, depth: int, nb: int, k_total: int) -> torch.Tensor:
+    """A (..., K, N) weight as B tiles of the bf16 kernels' ring, for one
+    bulk copy each: [...][N / nb][k_total / depth] tiles, each depth x nb in
+    the wgmma layout (8 x 8 core matrices, n-groups of 8 side by side,
+    k-groups of 8 rows after them), zero past K and N."""
+    *lead, k, n = w.shape
+    n_p = _ceil_to(n, nb)
+    t = F.pad(w, (0, n_p - n, 0, k_total - k))
+    t = t.reshape(*lead, k_total // depth, depth // 8, 8, n_p // nb, nb // 8, 8)
+    d = len(lead)
+    return t.permute(*range(d), d + 3, d, d + 1, d + 4, d + 2, d + 5).contiguous()
+
+
+def pack_bottleneck(p: BottleneckParams, plan: Plan, downsample: bool):
+    """The bf16 bottleneck's weights as the kernel's ring tiles (the order
+    of fused_bottleneck.cu BottleneckArgs): w1 in hidden chunks, w2 per tap
+    over chunks of its depth, w3 and wd per output tile."""
+    cin, chid = p.w1.shape
+    depth = plan.depth
+    chid_p = plan.ns * _bn2(chid, plan.ns)
+    cw, nb3 = _chunk(chid_p, plan.wide), plan.ns * BN3
+    w1 = pack_tiles(p.w1, depth, cw, _ceil_to(cin, depth))
+    w2 = pack_tiles(p.w2, depth, chid_p, _ceil_to(chid, cw))
+    w3 = pack_tiles(p.w3, depth, nb3, _ceil_to(chid_p, depth))
+    wd = pack_tiles(p.wd, depth, nb3, _ceil_to(cin, depth)) if downsample else None
+    return w1, w2, w3, wd
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +571,7 @@ def fused_inverted_residual(x: torch.Tensor, p: InvResidualParams, stride: int =
     elif chid != cin:
         raise ValueError(f"without an expand the hidden is x: Chid {chid} != Cin {cin}")
     _check_tensors(x, named)
-    plan = plan_inv_residual(h, w, cin, chid, cout, stride, expand, x.element_size())
+    plan = plan_inv_residual(h, w, cin, chid, cout, stride, expand, x.element_size(), n)
     lib = _kernels.load("fused_inv_residual")
     out = torch.empty((n, out_size(h, stride), out_size(w, stride), cout),
                       dtype=x.dtype, device=x.device)
@@ -351,7 +581,7 @@ def fused_inverted_residual(x: torch.Tensor, p: InvResidualParams, stride: int =
             p.b_expand.data_ptr() if expand else None, p.w_dw.data_ptr(),
             p.b_dw.data_ptr(), p.w_project.data_ptr(), p.b_project.data_ptr(),
             out.data_ptr(), n, h, w, cin, chid, cout, stride, int(expand),
-            int(use_res), plan.th, plan.tw, plan.g, plan.ch, x.element_size(),
+            int(use_res), plan.th, plan.tw, plan.g, plan.ch, plan.ns, x.element_size(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_inv_residual launch failed: CUDA error {err}")
@@ -384,17 +614,22 @@ def fused_bottleneck(x: torch.Tensor, p: BottleneckParams, stride: int = 1,
         named += [("wd", p.wd, x.dtype, (cin, cout)), ("bd", p.bd, f32, (cout,))]
     _check_tensors(x, named)
     mode = 1 if downsample else (0 if use_res else 2)
-    plan = plan_bottleneck(h, w, cin, chid, cout, stride, downsample, x.element_size())
+    plan = plan_bottleneck(h, w, cin, chid, cout, stride, downsample, x.element_size(), n)
     lib = _kernels.load("fused_bottleneck")
     out = torch.empty((n, out_size(h, stride), out_size(w, stride), cout),
                       dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            w1, w2, w3, wd = pack_bottleneck(p, plan, downsample)
+        else:
+            w1, w2, w3, wd = p.w1, p.w2, p.w3, p.wd
         err = lib.fused_bottleneck(
-            x.data_ptr(), p.w1.data_ptr(), p.b1.data_ptr(), p.w2.data_ptr(),
-            p.b2.data_ptr(), p.w3.data_ptr(), p.b3.data_ptr(),
-            p.wd.data_ptr() if downsample else None,
+            x.data_ptr(), w1.data_ptr(), p.b1.data_ptr(), w2.data_ptr(),
+            p.b2.data_ptr(), w3.data_ptr(), p.b3.data_ptr(),
+            wd.data_ptr() if downsample else None,
             p.bd.data_ptr() if downsample else None, out.data_ptr(), n, h, w, cin,
-            chid, cout, stride, mode, plan.th, plan.tw, plan.g, x.element_size(),
+            chid, cout, stride, mode, plan.th, plan.tw, plan.g, plan.ns, plan.stages,
+            plan.depth, plan.wide, x.element_size(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_bottleneck launch failed: CUDA error {err}")

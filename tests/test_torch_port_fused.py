@@ -236,17 +236,131 @@ FLAGSHIP_BOTTLENECK = [
 ]
 
 
-@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
-def test_plans_fit_shared_memory(itemsize):
-    """Every flagship block has a plan within the card's shared memory."""
-    for h, cin, chid, cout, s, expand in FLAGSHIP_IR:
-        plan = tfb.plan_inv_residual(h, h, cin, chid, cout, s, expand, itemsize)
-        rh, rw = (min((t - 1) * s + 3, h) for t in (plan.th, plan.tw))
-        opx = plan.g * plan.th * plan.tw
+# odd shapes the CUDA tests and chip_smoke.py run: ragged depths and widths
+ODD_IR = [(9, 8, 48, 12, 2, True), (9, 16, 16, 16, 2, False), (11, 20, 120, 12, 2, True)]
+ODD_BOTTLENECK = [(9, 64, 16, 64, 2, True), (9, 20, 12, 48, 2, True)]
+
+
+def _align(v, m=128):
+    return -(-v // m) * m
+
+
+def _region(t, s, size):
+    return min((t - 1) * s + 3, size)
+
+
+def _ir_smem_bf16(plan, h, cin, cout, s, expand):
+    """fused_inv_residual.cu tc_layout, written out: the x region (rows of
+    Cin rounded up to 16, padded by 16 bytes), the chunk's expand weights,
+    the hidden, the depthwise output (64 rows a warpgroup tile), the chunk's
+    project weights (the instance's width), a zero row, and two ints a row."""
+    rows = 64 * (2 // plan.ns)
+    mr = plan.g * _region(plan.th, s, h) * _region(plan.tw, s, h)
+    cin_p = -(-cin // 16) * 16
+    bnp = next(v for v in (16, 24, 32, 64, 96, 128, 160, 256) if -(-cout // plan.ns) <= v)
+    return bnp, (_align(mr * (cin_p + 8) * 2)
+                 + (_align(cin_p * 64 * 2) + _align(mr * 72 * 2) if expand else 0)
+                 + _align(rows * 72 * 2) + _align(64 * plan.ns * bnp * 2)
+                 + _align((cin_p + 8) * 2) + _align(rows * 8))
+
+
+def _bottleneck_smem_bf16(plan, h, chid, s):
+    """fused_bottleneck.cu tc_layout, written out: the ring (stages of the
+    largest of conv1's x tiles and w1 tile, conv2's w2 tile, conv3's strided
+    x tiles and w3 / wd tile; x rows padded by 16 bytes), one buffer for the
+    h1 chunk or h2 (rows padded by 16 bytes), a zero row, eight mbarriers."""
+    ns, depth = plan.ns, plan.depth
+    bn2 = next(v for v in (16, 32, 64, 128, 256) if -(-chid // ns) <= v)
+    mt, chid_p = 2 // ns, ns * bn2
+    chunk = chid_p if plan.wide else 64
+    a_tile = 64 * (depth + 8) * 2
+    stage = max((mt if plan.wide else 2) * a_tile + depth * chunk * 2, depth * chid_p * 2,
+                mt * a_tile + depth * ns * 128 * 2)
+    h1 = plan.g * _region(plan.th, s, h) * _region(plan.tw, s, h) * (chunk + 8) * 2
+    h2 = 64 * mt * (chid_p + 8) * 2
+    return bn2, chunk, (plan.stages * stage + _align(max(h1, h2))
+                        + _align((max(chunk, chid_p) + 8) * 2) + _align(8 * 8))
+
+
+def _check_inv_residual_plan(h, cin, chid, cout, s, expand, itemsize, n):
+    """The plan's shared memory is the kernel's layout, fits the card, and
+    keeps the products' constraints."""
+    plan = tfb.plan_inv_residual(h, h, cin, chid, cout, s, expand, itemsize, n)
+    rh, rw = _region(plan.th, s, h), _region(plan.tw, s, h)
+    opx = plan.g * plan.th * plan.tw
+    assert plan.smem <= tfb.SMEM_MAX
+    assert plan.g == 1 or (plan.th, plan.tw) == (tfb.out_size(h, s),) * 2
+    if itemsize == 4:
         assert plan.smem == (tfb.STAGE_BYTES + opx * cout * 4
                              + (plan.g * rh * rw + opx) * plan.ch * itemsize)
-        assert plan.smem <= tfb.SMEM_MAX and 1 <= plan.ch <= chid
-    for h, cin, chid, cout, s, down in FLAGSHIP_BOTTLENECK:
-        plan = tfb.plan_bottleneck(h, h, cin, chid, cout, s, down, itemsize)
-        assert plan.smem <= tfb.SMEM_MAX
-        assert plan.g == 1 or (plan.th, plan.tw) == (tfb.out_size(h, s),) * 2
+        assert 1 <= plan.ch <= chid
+        return
+    bnp, smem = _ir_smem_bf16(plan, h, cin, cout, s, expand)
+    assert plan.smem == smem
+    # 64-row warpgroup tiles: both warpgroups on the same rows (ns = 2) or
+    # one tile each; the project's width a multiple of 8 that holds Cout
+    assert plan.ns in (1, 2) and opx <= 64 * (2 // plan.ns)
+    assert bnp % 8 == 0 and plan.ns * bnp >= cout
+    assert plan.ch == 64   # hidden chunk: a multiple of the products' depth of 16
+
+
+def _check_bottleneck_plan(h, cin, chid, cout, s, down, itemsize, n):
+    plan = tfb.plan_bottleneck(h, h, cin, chid, cout, s, down, itemsize, n)
+    assert plan.smem <= tfb.SMEM_MAX
+    assert plan.g == 1 or (plan.th, plan.tw) == (tfb.out_size(h, s),) * 2
+    if itemsize == 4:
+        rh, rw = _region(plan.th, s, h), _region(plan.tw, s, h)
+        assert plan.smem == tfb.STAGE_BYTES + plan.g * (rh * rw + plan.th * plan.tw) * chid * 4
+        return
+    bn2, chunk, smem = _bottleneck_smem_bf16(plan, h, chid, s)
+    assert plan.smem == smem
+    assert plan.ns in (1, 2) and plan.g * plan.th * plan.tw <= 64 * (2 // plan.ns)
+    assert plan.ns * bn2 >= chid and bn2 % 8 == 0
+    # the hidden chunk is conv2's depth per pass: a multiple of 16 and of the
+    # ring's depth, or the whole (padded) hidden layer
+    assert chunk % 16 == 0 and chunk % plan.depth == 0 and plan.depth in (32, 64)
+    assert not plan.wide or (chunk == plan.ns * bn2 and bn2 >= 64)
+    assert 3 <= plan.stages <= 8
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_plans_fit_shared_memory(itemsize):
+    """Every flagship block's plan at the main path's N=1024 is laid out as
+    its kernel lays it out and fits the card's shared memory."""
+    for shape in FLAGSHIP_IR:
+        _check_inv_residual_plan(*shape, itemsize, 1024)
+    for shape in FLAGSHIP_BOTTLENECK:
+        _check_bottleneck_plan(*shape, itemsize, 1024)
+
+
+# small sample counts pick other plans (fewer samples per block, fewer waves)
+@pytest.mark.parametrize("n", [9, 64])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h,cin,chid,cout,s,expand", FLAGSHIP_IR + ODD_IR)
+def test_inv_residual_plan_fits_shared_memory(h, cin, chid, cout, s, expand, itemsize, n):
+    _check_inv_residual_plan(h, cin, chid, cout, s, expand, itemsize, n)
+
+
+@pytest.mark.parametrize("n", [9, 64])
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("h,cin,chid,cout,s,down", FLAGSHIP_BOTTLENECK + ODD_BOTTLENECK)
+def test_bottleneck_plan_fits_shared_memory(h, cin, chid, cout, s, down, itemsize, n):
+    _check_bottleneck_plan(h, cin, chid, cout, s, down, itemsize, n)
+
+
+def test_pack_tiles_matches_the_kernel_layout():
+    """Tile (n-tile, k-block) of pack_tiles holds element (k, n) at
+    (k % depth / 8) * nb * 8 + (n % nb / 8) * 64 + (k % 8) * 8 + n % 8,
+    the wgmma B layout of fused_gemm.cuh, zero past K and N."""
+    rs = np.random.RandomState(0)
+    w = torch.from_numpy(rs.randn(3, 40, 20).astype(np.float32))
+    depth, nb, k_total = 32, 16, 64
+    got = tfb.pack_tiles(w, depth, nb, k_total).reshape(3, -1).numpy()
+    want = np.zeros_like(got)
+    for k in range(40):
+        for n in range(20):
+            tile = (n // nb) * (k_total // depth) + k // depth
+            off = (tile * depth * nb + (k % depth // 8) * nb * 8 + (n % nb // 8) * 64
+                   + (k % 8) * 8 + n % 8)
+            want[:, off] = w[:, k, n].numpy()
+    np.testing.assert_array_equal(got, want)
