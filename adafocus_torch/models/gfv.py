@@ -37,7 +37,7 @@ from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.models.mobilenet import MobileNetV2
 from adafocus_torch.models.policy import ActorCritic, sample_rollout
 from adafocus_torch.models.resnet import resnet50
-from adafocus_torch.ops.patch import extract_patches, patch_offsets
+from adafocus_torch.ops.patch import extract_patches_at
 
 Device = Optional[Union[str, torch.device]]
 
@@ -232,11 +232,11 @@ def glance_policy_actions(model: GFV, frames_small: torch.Tensor,
 
 def extract_for_frames(frames: torch.Tensor, actions: torch.Tensor,
                        image_size: int, patch_size: int) -> torch.Tensor:
-    """(B, T, S, S, C) frames + (B, T, 2) actions -> (B*T, P, P, C)."""
-    b, t = frames.shape[:2]
-    offs = patch_offsets(actions.reshape(b * t, 2), image_size, patch_size)
-    return extract_patches(frames.reshape((b * t,) + frames.shape[2:]), offs,
-                           patch_size)
+    """(B, T, S, S, C) frames + (B, T, 2) actions -> (B*T, P, P, C).
+
+    On the GPU one kernel launch computes the offsets (``patch_offsets``)
+    and the patches."""
+    return extract_patches_at(frames, actions, image_size, patch_size)
 
 
 def fuse_and_classify(model: GFV, pooled: torch.Tensor, local: torch.Tensor

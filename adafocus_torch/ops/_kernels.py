@@ -34,8 +34,10 @@ _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # returns an int (a launcher: the cudaError_t of its launch)
 SIGNATURES = {
     "patch_extract": {
-        "patch_extract": [_c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_int, _c_int, _c_int,
-                          _c_int, _c_ptr],
+        # frames, offsets, actions, out, n, h, w, c, p, elem_size, span, t,
+        # sb, st, sk, rows, grid, stream
+        "patch_extract": [_c_ptr] * 4 + [_c_ll] + [_c_int] * 7 + [_c_ll] * 3 + [_c_int] * 2
+                         + [_c_ptr],
     },
     "fused_inv_residual": {
         # x, w_exp, b_exp, w_dw, b_dw, w_prj, b_prj, out, n, h, w, cin, chid,

@@ -9,11 +9,17 @@ multiple-of-8 rules and its grid chunking are Mosaic constraints and are
 not carried over: the CUDA kernel takes any H, W, P and C.
 
 ``extract_patches`` launches the CUDA kernel (``csrc/patch_extract.cu``)
-for a CUDA tensor and runs the plain version for a CPU tensor. There is no
-backward yet; the JAX VJP is a scatter and comes with the training slice.
+for a CUDA tensor and runs the plain version for a CPU tensor.
+``extract_patches_at`` does the same from [0, 1] actions, with
+``patch_offsets`` computed inside the kernel. The kernel copies 16-byte
+words over a grid of row bands, which ``plan_patch_extract`` sizes. There
+is no backward yet; the JAX VJP is a scatter and comes with the training slice.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,6 +28,44 @@ from adafocus_torch.ops import _kernels
 # element sizes (bytes) the kernel copies; the copy is bitwise, so any dtype
 # of these widths works (bf16, f16, f32, int8, uint8, ...)
 _ELEMENT_SIZES = (1, 2, 4)
+
+SM_COUNT = 132                 # H100 SXM
+# 256 threads a block, a grid of BLOCKS_PER_SM blocks an SM (8 resident at a
+# time): 16 was faster than 8 on an H100 (PERF.md)
+BLOCKS_PER_SM = 16
+# an item (one band of one patch) moves at most STAGE_CAP bytes each way;
+# at least MIN_ITEMS_PER_SM items an SM exist, so that at N=16 every SM
+# still has two
+STAGE_CAP = 16 * 1024
+MIN_ITEMS_PER_SM = 2
+
+
+class PatchPlan(NamedTuple):
+    """How one call is split: ``rows`` a band (R), ``bands`` a patch
+    (ceil(P / R)) and ``grid`` blocks."""
+
+    rows: int
+    bands: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan_patch_extract(n: int, p: int, c: int, elem_size: int,
+                       sms: int = SM_COUNT) -> PatchPlan:
+    """The work split for extracting N (P, P) patches of C channels of
+    ``elem_size``-byte elements: the tallest band of at most ``STAGE_CAP``
+    bytes that still cuts the N patches into ``MIN_ITEMS_PER_SM`` items an
+    SM or more (one-row bands where none does), and a grid of at most
+    ``BLOCKS_PER_SM`` blocks an SM striding over the items."""
+    row_bytes = p * c * elem_size
+    rmax = max(1, min(p, STAGE_CAP // row_bytes))
+    rows, bands = 1, p
+    for b in range(-(-p // rmax), p + 1):
+        r = -(-p // b)
+        if -(-p // r) == b and n * b >= MIN_ITEMS_PER_SM * sms:
+            rows, bands = r, b
+            break
+    return PatchPlan(rows, bands, max(1, min(n * bands, BLOCKS_PER_SM * sms)))
 
 
 def patch_offsets(actions: torch.Tensor, image_size: int, patch_size: int
@@ -54,17 +98,22 @@ def extract_patches_reference(frames: torch.Tensor, offsets: torch.Tensor,
     return frames[batch, rows, cols]
 
 
-def _check_kernel_args(frames: torch.Tensor, offsets: torch.Tensor,
-                       patch_size: int) -> None:
+def _check_frames(frames: torch.Tensor, patch_size: int) -> None:
+    if frames.device.type != "cuda":
+        raise ValueError(f"no patch-extraction kernel for device {frames.device}")
     if frames.dim() != 4:
         raise ValueError(f"frames must be (N, H, W, C), got {tuple(frames.shape)}")
-    n, h, w, _ = frames.shape
+    _, h, w, _ = frames.shape
     if not 1 <= patch_size <= min(h, w):
         raise ValueError(f"patch size {patch_size} does not fit frames {h}x{w}")
     if frames.element_size() not in _ELEMENT_SIZES or frames.is_complex():
         raise TypeError(f"unsupported frame dtype {frames.dtype}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
+
+
+def _check_offsets(frames: torch.Tensor, offsets: torch.Tensor) -> None:
+    n = frames.shape[0]
     if offsets.dtype != torch.int32 or tuple(offsets.shape) != (n, 2):
         raise ValueError(
             f"offsets must be int32 of shape ({n}, 2), got "
@@ -72,6 +121,44 @@ def _check_kernel_args(frames: torch.Tensor, offsets: torch.Tensor,
         )
     if offsets.device != frames.device or not offsets.is_contiguous():
         raise ValueError("offsets must be contiguous and on the frames' device")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_launcher = None
+
+
+def _launch(frames: torch.Tensor, patch_size: int, offsets: Optional[torch.Tensor] = None,
+            actions: Optional[torch.Tensor] = None, span: int = 0) -> torch.Tensor:
+    """One launch of the kernel from ``offsets`` ((N, 2) int32) or from
+    ``actions`` ((B, T, 2) float32, any strides, with ``span`` = S - P)."""
+    global _launcher
+    if _launcher is None:
+        _launcher = _kernels.load("patch_extract").patch_extract
+    n, h, w, c = frames.shape
+    elem = frames.element_size()
+    dev = frames.device
+    plan = plan_patch_extract(n, patch_size, c, elem, sms=_sm_count(dev.index))
+    out = torch.empty((n, patch_size, patch_size, c), dtype=frames.dtype, device=dev)
+    if actions is None:
+        act_ptr, t, strides = None, 1, (0, 0, 0)
+    else:
+        act_ptr, t, strides = actions.data_ptr(), actions.shape[1], actions.stride()
+    args = (frames.data_ptr(), None if offsets is None else offsets.data_ptr(), act_ptr,
+            out.data_ptr(), n, h, w, c, patch_size, elem, span, t, *strides,
+            plan.rows, plan.grid)
+    if dev.index == torch.cuda.current_device():
+        err = _launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = _launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"patch_extract launch failed ({plan}): CUDA error {err}")
+    extract_patches.launches += 1
+    return out
 
 
 def extract_patches(frames: torch.Tensor, offsets: torch.Tensor,
@@ -84,25 +171,34 @@ def extract_patches(frames: torch.Tensor, offsets: torch.Tensor,
     """
     if frames.device.type == "cpu":
         return extract_patches_reference(frames, offsets, patch_size)
-    if frames.device.type != "cuda":
-        raise ValueError(f"no patch-extraction kernel for device {frames.device}")
-    _check_kernel_args(frames, offsets, patch_size)
-    lib = _kernels.load("patch_extract")
-    n, h, w, c = frames.shape
-    out = torch.empty((n, patch_size, patch_size, c), dtype=frames.dtype,
-                      device=frames.device)
-    with torch.cuda.device(frames.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.patch_extract(
-            frames.data_ptr(), offsets.data_ptr(), out.data_ptr(), n, h, w, c,
-            patch_size, frames.element_size(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"patch_extract launch failed: CUDA error {err}")
-    extract_patches.launches += 1
-    return out
+    _check_frames(frames, patch_size)
+    _check_offsets(frames, offsets)
+    return _launch(frames, patch_size, offsets=offsets)
 
 
 # kernel launches since the last reset; tests and chip_smoke.py read it to
 # show that a run went through the CUDA kernel
 extract_patches.launches = 0
+
+
+def extract_patches_at(frames: torch.Tensor, actions: torch.Tensor, image_size: int,
+                       patch_size: int) -> torch.Tensor:
+    """(B, T, H, W, C) frames and (B, T, 2) [0, 1] actions -> (B*T, P, P, C):
+    ``extract_patches(frames.reshape(B*T, ...), patch_offsets(actions,
+    image_size, patch_size), patch_size)``.
+
+    On a CUDA tensor one kernel launch computes the offsets and the patches,
+    reading the actions where they lie; on a CPU tensor it runs the two
+    plain steps.
+    """
+    b, t = frames.shape[:2]
+    flat = frames.reshape((b * t,) + frames.shape[2:])
+    if frames.device.type == "cpu":
+        offs = patch_offsets(actions.reshape(b * t, 2), image_size, patch_size)
+        return extract_patches_reference(flat, offs, patch_size)
+    _check_frames(flat, patch_size)
+    if tuple(actions.shape) != (b, t, 2) or actions.device != frames.device:
+        raise ValueError(f"actions must be ({b}, {t}, 2) on the frames' device, got "
+                         f"{tuple(actions.shape)} on {actions.device}")
+    return _launch(flat, patch_size, actions=actions.to(torch.float32),
+                   span=image_size - patch_size)

@@ -11,13 +11,18 @@ Phases, each raising on failure:
      prints each kernel's registers and spills (``-Xptxas -v``) and, from
      ``cuobjdump -sass``, the tensor-core instructions (HGMMA = wgmma, HMMA =
      mma.sync) of each fused-block kernel instance; raises if a bf16
-     instance has none;
+     instance has no tensor-core instruction;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it, plus edge and odd shapes (patch
-     extraction is a copy: bit-identical; the fused blocks at every distinct
-     block shape of the flagship in float32 and bf16, at N=4 in two rounds
-     of fresh inputs and, in bf16, at N=1024), and times kernel, plain
-     version and a library yardstick with CUDA events;
+     extraction is a copy: bit-identical, at every misalignment of the
+     source column, on an unaligned base and from actions, whose offsets
+     must equal ``patch_offsets``'; the fused blocks
+     at every distinct block shape of the flagship in float32 and bf16, at
+     N=4 in two rounds of fresh inputs and, in bf16, at N=1024), and times
+     kernel, plain version and a library yardstick with CUDA events (patch
+     extraction at the four shapes of ``port_patch_times.SHAPES``, beside a
+     strided and a contiguous ``copy_`` of the same bytes, also by the
+     profiler's kernel durations);
   4. drives the flagship deployment forward (``models.gfv.inference``, bf16,
      B=2, T=16, full depth and width, weights from a seeded generator) on
      both backbone paths, library convs (``fused="auto"``) and fused blocks
@@ -25,12 +30,20 @@ Phases, each raising on failure:
      before and read just after; checks the logits' shape and finiteness,
      bf16 against float32 on the same weights with the float32 greedy
      actions injected, and fused against unfused in bf16 and in float32;
+     holds the patch kernel from the policy's own actions
+     (``extract_patches_at``) against ``patch_offsets`` and the plain
+     version on the forward's frames;
   5. times the flagship forward at B=64, T=16, bf16 on both paths
-     (videos/s, three runs each) and each of its five phases.
+     (videos/s, three runs each) and each of its five phases, checks the
+     patch kernel from the policy's actions there as in phase 4, profiles
+     three forwards on the cuDNN path (``torch.profiler``): each phase's
+     device window, busy and idle time, the extraction phase split into its
+     patch kernel, other kernels and device idle.
 
-Prints the per-shape table of the fused blocks (with each shape's plan,
-TFLOP/s, waves at N=1024 and tensor-core instruction) and the kernel table
-as JSON lines, then as its last line
+Prints the per-shape tables of the patch kernel and of the fused blocks
+(with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
+instruction), the profile and the kernel table as JSON lines, then as its
+last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -43,6 +56,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -144,14 +158,88 @@ def _random_frames(shape, dtype, gen):
                          device=gen.device, dtype=dtype)
 
 
-def check_patch_kernel(device) -> dict:
-    """Phase 3 for ``extract_patches``: bit-identical to the plain version in
-    bf16, f32 and int8 at the flagship shape and at odd shapes, then timed at
-    the main path's B=64 shape. Returns the kernel's table row (without
-    ``launches``)."""
+def _check_same(got, want, label):
     import torch
 
-    from adafocus_torch.ops.patch import extract_patches, extract_patches_reference
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"extract_patches differs from the plain version at {label}")
+    print(f"extract_patches {label}: bit-identical", flush=True)
+
+
+def check_patch_at(frames, actions, image_size, patch_size, label) -> None:
+    """The patch kernel as the main path calls it, from (B, T, 2) actions
+    (``extract_patches_at``), against ``patch_offsets`` and the plain
+    version on the same frames."""
+    from adafocus_torch.ops.patch import (
+        extract_patches_at, extract_patches_reference, patch_offsets,
+    )
+
+    b, t = frames.shape[:2]
+    got = extract_patches_at(frames, actions, image_size, patch_size)
+    offs = patch_offsets(actions.reshape(b * t, 2), image_size, patch_size)
+    want = extract_patches_reference(frames.reshape((b * t,) + frames.shape[2:]), offs,
+                                     patch_size)
+    _check_same(got, want, f"{label}, from the policy's actions")
+
+
+def check_patch_edges(device) -> None:
+    """Phase 3, the patch kernel at every misalignment residue of the
+    source column (x*C*e mod 16) and on an unaligned base; and the offsets
+    computed inside the kernel from actions against ``patch_offsets`` for
+    the flagship's 49 anchor values plus 0 and 1."""
+    import torch
+
+    from adafocus_torch.models.policy import discrete_to_coords
+    from adafocus_torch.ops.patch import (
+        extract_patches, extract_patches_at, extract_patches_reference, patch_offsets,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    # x = 0..15: every residue x*C*e mod 16 there is for C=3 and e = 1, 2, 4
+    for dtype in (torch.int8, torch.bfloat16, torch.float32):
+        frames = _random_frames((16, 224, 224, 3), dtype, gen)
+        offs = torch.stack([torch.randint(0, 129, (16,), generator=gen, device=device),
+                            torch.arange(16, device=device)], 1).to(torch.int32)
+        _check_same(extract_patches(frames, offs, 96), extract_patches_reference(frames, offs, 96),
+                    f"x = 0..15 224x224x3 P=96 {dtype}")
+    # a base one element past 16-byte alignment
+    flat = _random_frames((16 * 224 * 224 * 3 + 1,), torch.bfloat16, gen)
+    frames = flat[1:].view(16, 224, 224, 3)
+    offs = torch.randint(-50, 200, (16, 2), generator=gen, device=device, dtype=torch.int32)
+    _check_same(extract_patches(frames, offs, 96), extract_patches_reference(frames, offs, 96),
+                "unaligned base N=16 224x224x3 P=96 bf16")
+    # offsets inside the kernel: frames whose values are their own (y, x)
+    s, p, b, t = 224, 96, 3, 17
+    grid = discrete_to_coords(torch.arange(49), 49)
+    acts = torch.cat([grid, torch.tensor([[0.0, 0.0], [1.0, 1.0]])]).reshape(t, b, 2)
+    acts = acts.to(device).transpose(0, 1)     # (B, T, 2) as the policy lays it out
+    yx = torch.arange(s * s, device=device, dtype=torch.int32).reshape(1, 1, s, s, 1)
+    frames = yx.expand(b, t, s, s, 3).contiguous()
+    got = extract_patches_at(frames, acts, s, p)
+    offs = patch_offsets(acts.reshape(b * t, 2), s, p)
+    torch.cuda.synchronize()
+    found = torch.stack([got[:, 0, 0, 0] // s, got[:, 0, 0, 0] % s], 1)
+    if not torch.equal(found, offs):
+        raise AssertionError(f"offsets from actions {found.tolist()} != patch_offsets "
+                             f"{offs.tolist()}")
+    _check_same(got, extract_patches_reference(frames.reshape(b * t, s, s, 3), offs, p),
+                "from actions, 49 anchors + 0 + 1, offsets equal patch_offsets'")
+
+
+def check_patch_kernel(device) -> tuple:
+    """Phase 3 for ``extract_patches``: bit-identical to the plain version in
+    bf16, f32 and int8 at the flagship shape and at odd shapes, at the edges
+    of ``check_patch_edges``, and at the four shapes of
+    ``port_patch_times.SHAPES``; then each of those shapes timed (the
+    kernel, the plain version and two ``copy_`` yardsticks). Returns (the
+    kernel's table row without ``launches``, the per-shape rows)."""
+    import torch
+
+    from adafocus_torch.ops.patch import (
+        extract_patches, extract_patches_reference, plan_patch_extract,
+    )
+    from port_patch_times import SHAPES, make_inputs, time_shapes
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     # (N, H, W, C, P): flagship B=64 x T=16, odd square, H != W, N > 65535
@@ -183,30 +271,34 @@ def check_patch_kernel(device) -> dict:
             print(f"extract_patches N={n} {h}x{w}x{c} P={p} {dtype}: "
                   f"bit-identical", flush=True)
 
-    n, s, c, p = 1024, 224, 3, 96
-    frames = _random_frames((n, s, s, c), torch.bfloat16, gen)
-    offs = torch.randint(0, s - p + 1, (n, 2), generator=gen, device=device,
-                         dtype=torch.int32)
-    window = frames[:, 64:64 + p, 64:64 + p, :]
-    out = torch.empty((n, p, p, c), dtype=frames.dtype, device=device)
-    ms = _time_ms(lambda: extract_patches(frames, offs, p))
-    plain_ms = _time_ms(lambda: extract_patches_reference(frames, offs, p), iters=20)
-    # yardstick: one strided copy of the same bytes (one window for all N)
-    library_ms = _time_ms(lambda: out.copy_(window))
-    moved = 2 * n * p * p * c * frames.element_size() + offs.numel() * 4
+    check_patch_edges(device)
+
+    plans = {}
+    for shape in SHAPES:
+        name, n, s, c, p, _ = shape
+        frames, offs = make_inputs(shape, device, gen)
+        _check_same(extract_patches(frames, offs, p), extract_patches_reference(frames, offs, p),
+                    name)
+        plans[name] = plan_patch_extract(n, p, c, frames.element_size())
+        del frames, offs
+    timed = time_shapes({"kernel": extract_patches, "plain": extract_patches_reference}, device)
+    for row in timed:
+        row["plan"] = plans[row["shape"]]._asdict()
+    main = timed[0]   # the flagship's B=64 x T=16 call
     return {
         "name": "extract_patches",
         "route": "cuda",
         "source": "adafocus_torch/csrc/patch_extract.cu",
         "replaces": "adafocus_tpu/ops/patch.py:164",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+        "ms": main["us"] / 1e3,
+        "plain_ms": main["plain_us"] / 1e3,
+        "bound_ms": main["bound_us"] / 1e3,
         "bound_by": "bytes",
-        "library_ms": library_ms,
-        "shape": f"N={n} {s}x{s}x{c} P={p} bf16",
-    }
+        # one strided copy of the same bytes (one window for all N)
+        "library_ms": main["strided_copy_us"] / 1e3,
+        "shape": f"{main['shape']}: N={main['n']} {main['frames']} P={main['p']} bf16",
+    }, timed
 
 
 def _block_shapes(model) -> dict:
@@ -501,6 +593,8 @@ def flagship_forward(model16, device) -> dict:
         roll32 = glance_policy_actions(model32, small)[2]
         roll16 = glance_policy_actions(model16, small16)[2]
         roll16f = model16.policy_rollout(fused_glance(model16, small16)[0])
+    check_patch_at(frames16, roll16["actions"], s, cfg16.patch_size,
+                   f"flagship B={b} T={t} bf16")
     acts = roll32["actions"]
     logits32 = inference_with_actions(model32, frames, small, acts, device=device)
     logits16 = inference_with_actions(model16, frames16, small16, acts, device=device)
@@ -576,6 +670,8 @@ def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 1
             if i:
                 for k, name in enumerate(names):
                     phases[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
+        check_patch_at(frames, roll["actions"], s, cfg.patch_size,
+                       f"flagship B={b} T={t} bf16 fused={fused!r}")
     return vps, phases
 
 
@@ -585,6 +681,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    start = time.perf_counter()
+
+    def done(what):
+        print(f"{what} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     device = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -606,15 +707,27 @@ def main() -> int:
             elif ("Used" in ln and "registers" in ln) or "spill stores" in ln:
                 print(f"nvcc {name} {fn}: {ln.split(':', 1)[-1].strip()}", flush=True)
     sass = tensor_core_instructions()
+    done("phase 2 (build, SASS)")
 
     from adafocus_torch.models.gfv import GFV, flagship
+    from port_patch_times import flagship_inputs, profile_phases
 
     model16 = GFV(flagship(), device=device,
                   generator=torch.Generator().manual_seed(SEED))
-    rows = [check_patch_kernel(device)]
+    patch_row, patch_shapes = check_patch_kernel(device)
+    for row in patch_shapes:
+        print(f"extract_patches {row['shape']} (plan {tuple(row['plan'].values())}): kernel "
+              f"{row['us']!r} us ({row['dev_us']!r} on the device, {row['tb_per_s']!r} TB/s, "
+              f"{row['share_of_bound']!r} of the bound), plain {row['plain_us']!r} us, strided copy_ "
+              f"{row['strided_copy_us']!r} us, contiguous copy_ {row['contiguous_copy_us']!r} "
+              f"us, bound {row['bound_us']!r} us ({card})", flush=True)
+    rows = [patch_row]
+    done("phase 3, patch kernel")
     fused_rows, per_shape = check_fused_blocks(model16, device, sass)
     rows += fused_rows
+    done("phase 3, fused blocks")
     launches = flagship_forward(model16, device)["launches"]
+    done("phase 4")
     # each kernel's count from the run of its own path: the library-conv
     # path (slice 1) for extraction, the fused path for the blocks
     rows[0]["launches"] = launches["auto"]["extract_patches"]
@@ -624,6 +737,21 @@ def main() -> int:
         vps, phases = flagship_throughput(model16, device, fused, iters=iters)
         print(f"flagship bf16 B=64 T=16 fused={fused!r}: videos/s {vps!r}; phase ms "
               f"{json.dumps(phases)} ({card})", flush=True)
+    torch.backends.cudnn.benchmark = True
+    frames, small = flagship_inputs(model16, device)
+    prof = profile_phases(model16, frames, small)
+    ext = prof["extract"]
+    print(f"extraction phase, profiled, bf16 B=64 T=16 cuDNN path: window "
+          f"{ext['window_ms']!r} ms = patch kernel {ext['patch_kernel_ms']!r} + other kernels "
+          f"{ext['other_kernels_ms']!r} + device idle {ext['idle_ms']!r}; host "
+          f"{ext['host_ms']!r} ms; forward idle share {prof['forward']['idle_share']!r} "
+          f"({card})", flush=True)
+    if not ext["patch_kernel_ms"] > 0:
+        raise AssertionError(f"the profile shows no patch kernel in the extraction phase: {prof}")
+    del frames, small
+    done("phase 5")
+    print(json.dumps({"extraction_profile": prof}), flush=True)
+    print(json.dumps({"patch_shapes": patch_shapes}), flush=True)
     print(json.dumps({"fused_shapes": per_shape}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,4 +1,4 @@
-"""The fused-block CUDA kernels against their plain versions, on a GPU.
+"""The CUDA kernels against their plain versions, on a GPU.
 
 Every test here is marked ``cuda`` and skips where no GPU is visible: a
 CUDA kernel has no CPU or interpret mode. The file imports nothing of JAX,
@@ -6,16 +6,20 @@ so it runs on a machine without it, past tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Tolerance, max|kernel - plain| / max|plain|: 1e-4 in float32 (summation
-order only, TF32 off) and 2e-2 in bf16 (a hidden value whose rounding flips
-moves by one bf16 ulp).
+Patch extraction is a copy: it is held bit-identical to the plain version,
+at every source misalignment (x*C*e mod 16), on an unaligned base, at the N=16 band split, above N = 65535, with starts that
+wrap and clamp, in 1-, 2- and 4-byte elements, from offsets and from
+actions.
 
-The cases cover the bf16 tensor-core kernels' edges: depths that are not a
-multiple of 16 (Cin 24, 20; Chid 144, 12), widths that are not a multiple
-of 8 or of the tile (Cout 12; Chid 16), rows that are not 16-byte aligned
-(Cin 20), a sample count that is not a multiple of the samples per block,
-both ways of sharing a block between its two warpgroups, and the
-flagship's widest bottlenecks at N=9.
+The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
+float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
+whose rounding flips moves by one bf16 ulp). Their cases cover the bf16
+tensor-core kernels' edges: depths that are not a multiple of 16 (Cin 24,
+20; Chid 144, 12), widths that are not a multiple of 8 or of the tile
+(Cout 12; Chid 16), rows that are not 16-byte aligned (Cin 20), a sample
+count that is not a multiple of the samples per block, both ways of sharing
+a block between its two warpgroups, and the flagship's widest bottlenecks
+at N=9.
 """
 
 import pytest
@@ -24,6 +28,7 @@ import torch
 from adafocus_torch.models import mobilenet as tmob
 from adafocus_torch.models import resnet as tres
 from adafocus_torch.ops import fused_blocks as tfb
+from adafocus_torch.ops import patch as tpatch
 
 
 def _rel_err(got, want):
@@ -36,6 +41,80 @@ def _needs_gpu():
 
 
 CUDA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _patch_frames(n, h, w, c, dtype, gen, unaligned=False):
+    shape = (n, h, w, c)
+    numel = n * h * w * c
+    if dtype.is_floating_point:
+        flat = torch.randn(numel + 1, generator=gen).to(dtype)
+    else:
+        flat = torch.randint(-2**31, 2**31 - 1, (numel + 1,), generator=gen).to(dtype)
+    flat = flat.cuda()
+    # a view one element in: its base is not 16-byte aligned
+    return flat[1:].view(shape) if unaligned else flat[:numel].view(shape)
+
+
+def _patch_offsets(n, h, w, p, gen):
+    # starts that wrap (negative) and clamp (past the edge), then every
+    # source column x in 0..15, so x*C*e takes every residue mod 16 that it can
+    offs = torch.stack([torch.randint(-h // 2, h + 4, (n,), generator=gen),
+                        torch.randint(-w // 2, w + 4, (n,), generator=gen)], 1)
+    k = min(n, 16, w - p + 1)
+    offs[:k, 1] = torch.arange(k)
+    return offs.to(torch.int32).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,p,dtype,unaligned", [
+    (16, 224, 224, 3, 96, torch.bfloat16, False),   # batch 1 of the flagship: the band split
+    (16, 40, 48, 3, 16, torch.int8, False),         # every residue of x*C mod 16
+    (8, 40, 48, 3, 16, torch.bfloat16, False),
+    (9, 41, 48, 3, 16, torch.float32, False),
+    (7, 40, 48, 3, 16, torch.bfloat16, True),       # unaligned base
+    (7, 40, 48, 3, 16, torch.int8, True),
+    (9, 41, 50, 3, 17, torch.bfloat16, False),      # odd rows
+    (7, 50, 77, 5, 13, torch.int8, False),
+    (5, 37, 37, 3, 11, torch.float32, False),
+    (70000, 12, 16, 3, 8, torch.bfloat16, False),   # N > 65535
+], ids=["n16-bf16", "residues-int8", "residues-bf16", "f32", "unaligned-bf16",
+        "unaligned-int8", "odd-bf16", "odd-c5-int8", "odd-f32", "n70000-bf16"])
+def test_cuda_kernel_matches_reference(n, h, w, c, p, dtype, unaligned):
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(n + h + w + p)
+    frames = _patch_frames(n, h, w, c, dtype, gen, unaligned)
+    offs = _patch_offsets(n, h, w, p, gen)
+    assert (frames.data_ptr() % 16 != 0) == unaligned
+    before = tpatch.extract_patches.launches
+    got = tpatch.extract_patches(frames, offs, p)
+    torch.cuda.synchronize()
+    assert tpatch.extract_patches.launches == before + 1
+    assert torch.equal(got, tpatch.extract_patches_reference(frames, offs, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p,dtype", [(3, 96, torch.int32), (3, 17, torch.int32),
+                                       (3, 96, torch.bfloat16)])
+def test_cuda_extract_at_matches_patch_offsets(c, p, dtype):
+    # the offsets computed inside the kernel equal patch_offsets' for the
+    # flagship's 49-anchor grid values plus 0 and 1, from (B, T, 2) actions
+    # laid out as the policy returns them (transposed)
+    _needs_gpu()
+    from adafocus_torch.models.policy import discrete_to_coords
+
+    b, t, s = 3, 17, 224
+    grid = discrete_to_coords(torch.arange(49), 49)
+    acts = torch.cat([grid, torch.tensor([[0.0, 0.0], [1.0, 1.0]])]).reshape(t, b, 2)
+    acts = acts.cuda().transpose(0, 1)
+    gen = torch.Generator().manual_seed(p)
+    frames = _patch_frames(b * t, s, s, c, dtype, gen).reshape(b, t, s, s, c)
+    before = tpatch.extract_patches.launches
+    got = tpatch.extract_patches_at(frames, acts, s, p)
+    torch.cuda.synchronize()
+    assert tpatch.extract_patches.launches == before + 1
+    offs = tpatch.patch_offsets(acts.reshape(b * t, 2), s, p)
+    want = tpatch.extract_patches_reference(frames.reshape(b * t, s, s, c), offs, p)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@ The port (adafocus_torch/ops/patch.py, models/policy.py) against the JAX
 package on the same numpy inputs. Every comparison is exact: offsets are
 integers and extraction is a copy. The JAX Pallas kernel runs in interpret
 mode on the CPU, as tests/test_patch.py runs it. The CUDA kernel itself is
-held against the plain version by the test marked ``cuda``, which runs only
-where a GPU is visible (and by chip_smoke.py).
+held against the plain version by tests/test_torch_port_cuda.py, which
+runs only where a GPU is visible (and by chip_smoke.py); its host plan by
+tests/test_torch_port_patch_plan.py.
 """
 
 import jax.numpy as jnp
@@ -98,24 +99,22 @@ def test_extract_has_no_silent_fallback():
     offs = torch.zeros((2, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no patch-extraction kernel"):
         tpatch.extract_patches(frames, offs, 4)
+    acts = torch.zeros((1, 2, 2), device="meta")
+    with pytest.raises(ValueError, match="no patch-extraction kernel"):
+        tpatch.extract_patches_at(frames.reshape(1, 2, 8, 8, 3), acts, 8, 4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8])
-def test_cuda_kernel_matches_reference(dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernel has no CPU or interpret mode")
-    gen = torch.Generator().manual_seed(0)
-    n, h, w, c, p = 9, 41, 50, 3, 17
-    if dtype.is_floating_point:
-        frames = torch.randn((n, h, w, c), generator=gen).to(dtype)
-    else:
-        frames = torch.randint(-128, 128, (n, h, w, c), generator=gen).to(dtype)
-    offs = torch.stack([torch.randint(-4, h, (n,), generator=gen),
-                        torch.randint(-4, w, (n,), generator=gen)], 1)
-    frames, offs = frames.cuda(), offs.to(torch.int32).cuda()
-    before = tpatch.extract_patches.launches
-    got = tpatch.extract_patches(frames, offs, p)
-    torch.cuda.synchronize()
-    assert tpatch.extract_patches.launches == before + 1
-    assert torch.equal(got, tpatch.extract_patches_reference(frames, offs, p))
+@pytest.mark.parametrize("s,p", [(32, 16), (37, 11)])
+def test_extract_at_matches_jax(s, p):
+    # extract_for_frames' path: (B, T, 2) actions, here transposed as the
+    # policy returns them, with the anchor grid's values plus 0 and 1
+    b, t = 3, 17
+    imgs = _frames((b, t, s, s, 3), "float32", seed=s)
+    grid = np.asarray(jpolicy.discrete_to_coords(jnp.arange(49), 49))
+    acts = np.concatenate([grid, [[0, 0], [1, 1]]]).astype(np.float32).reshape(t, b, 2)
+    got = tpatch.extract_patches_at(torch.from_numpy(imgs),
+                                    torch.from_numpy(acts).transpose(0, 1), s, p)
+    offs = jpatch.patch_offsets(jnp.asarray(acts.transpose(1, 0, 2).reshape(b * t, 2)), s, p)
+    want = np.asarray(jpatch.extract_patches_slice(
+        jnp.asarray(imgs.reshape(b * t, s, s, 3)), offs, p))
+    np.testing.assert_array_equal(got.numpy(), want)
