@@ -9,8 +9,10 @@ package wrote in Pallas becomes a CUDA kernel written for ``sm_90a``
 
 Covered so far: the deployment forward of the ActivityNet family
 (``models.gfv.inference``): glance, greedy policy, patch extraction, focus
-and the GRU classifier. ``weights.gfv_state_dict_from_flax`` carries the
-weights of a trained flax GFV over.
+and the GRU classifier; and its supervised training (``train.stages``:
+stages 0, 1 and 3 and the eval step; ``train.optim``).
+``weights.gfv_state_dict_from_flax`` carries the weights of a trained flax
+GFV over.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises

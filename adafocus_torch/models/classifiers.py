@@ -30,7 +30,7 @@ class RecurrentClassifier(nn.Module):
     def forward_with_hiddens(self, features: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T, D) -> (logits (B, T, classes), hiddens (B, T, H))."""
-        h0 = self.gru.initial_state(features.shape[0])
+        h0 = self.gru.initial_state(features.shape[0], features.dtype)
         _, hs = self.gru.scan_time(h0, features.transpose(0, 1))
         return self.fc(hs).transpose(0, 1), hs.transpose(0, 1)
 

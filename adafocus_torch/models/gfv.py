@@ -9,15 +9,20 @@ The deployment forward runs in five phases, batched over B*T:
   5. classify:   concat [pooled 1280 | local 2048] -> GRU -> per-step FC.
 
 With ``inference(..., fused="on")`` phases 1 and 4 run each residual block
-of the backbones as one CUDA kernel (models/fused_inference.py).
+of the backbones as one CUDA kernel (models/fused_inference.py). The
+training steps (train/stages.py) compose the same phases with ``train=True``
+and ``forward_random``.
 
 The public functions keep the JAX package's layouts: frames are
 channels-last (B, T, S, S, 3), feature maps (B, T, gh, gw, C). Inside, the
 backbones take NCHW views of channels-last memory, which is free.
 
-Parameters live in ``cfg.dtype`` except BatchNorm's, which stay float32
-(the usual mixed-precision arrangement; the JAX package also normalises in
-float32 and keeps every parameter float32). Patch actions are float32 in
+A serving model keeps its parameters in ``cfg.dtype`` except BatchNorm's,
+which stay float32. A training model (``param_dtype=torch.float32``) keeps
+every parameter in float32 and computes in ``cfg.dtype`` under
+``torch.autocast`` (``GFV.autocast``), as the JAX package keeps float32
+parameters and computes in ``cfg.dtype``: a bf16 parameter would drop every
+SGD update under about 2^-8 of its value. Patch actions are float32 in
 every configuration.
 """
 
@@ -37,7 +42,7 @@ from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.models.mobilenet import MobileNetV2
 from adafocus_torch.models.policy import ActorCritic, sample_rollout
 from adafocus_torch.models.resnet import resnet50
-from adafocus_torch.ops.patch import extract_patches_at
+from adafocus_torch.ops.patch import extract_patches_at, random_patch_actions
 
 Device = Optional[Union[str, torch.device]]
 
@@ -135,14 +140,18 @@ class GFV(nn.Module):
 
     Weights are initialised on the CPU from ``generator`` (seed 0 when
     None), flax's initialisers in kind, then moved to ``device`` and
-    ``cfg.dtype``. The model is built in eval mode.
+    ``param_dtype`` (``cfg.dtype`` when None: the serving model; float32 for
+    training). The model is built in eval mode; each phase method sets its
+    backbone's mode from its ``train`` argument.
     """
 
     def __init__(self, cfg: GFVConfig, device: Device = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = default_device(device)
         self.cfg = cfg
+        self.param_dtype = cfg.dtype if param_dtype is None else param_dtype
         self.glancer = MobileNetV2(num_classes=cfg.num_classes)
         self.focuser = resnet50(num_classes=cfg.num_classes)
         g = cfg.glance_map_size
@@ -155,12 +164,12 @@ class GFV(nn.Module):
         )
         self.reset_parameters(generator)
         self.eval()
-        self.to(device=dev, dtype=cfg.dtype, memory_format=torch.channels_last)
-        # BatchNorm back to float32; its fresh 1/0/0/1 values are exact in
-        # any float dtype, so the round trip loses nothing
+        self.to(device=dev, dtype=self.param_dtype, memory_format=torch.channels_last)
+        # BatchNorm in float32 at least; its fresh 1/0/0/1 values are exact
+        # in any float dtype, so the round trip loses nothing
         for m in self.modules():
             if isinstance(m, nn.BatchNorm2d):
-                m.float()
+                m.to(torch.promote_types(self.param_dtype, torch.float32))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -180,16 +189,38 @@ class GFV(nn.Module):
     def device(self) -> torch.device:
         return self.classifier.fc.weight.device
 
+    def autocast(self) -> torch.autocast:
+        """The compute-dtype context: autocast to ``cfg.dtype`` when the
+        parameters are in another dtype (a training model), a no-op for a
+        serving model."""
+        return torch.autocast(self.device.type, dtype=self.cfg.dtype,
+                              enabled=self.param_dtype != self.cfg.dtype)
+
     # ---- phase 1: glance -------------------------------------------------
 
-    def glance(self, frames_small: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, T, g, g, 3) -> map (B, T, gh, gw, 1280), pooled (B, T, 1280)."""
+    def _glancer_features(self, frames_small: torch.Tensor, train: bool):
+        _set_mode(self.glancer, train)
         b, t = frames_small.shape[:2]
         x = frames_small.reshape((b * t,) + frames_small.shape[2:])
-        fmap, pooled = self.glancer.features(x.to(self.cfg.dtype).permute(0, 3, 1, 2))
+        return self.glancer.features(x.to(self.cfg.dtype).permute(0, 3, 1, 2))
+
+    def glance(self, frames_small: torch.Tensor, train: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, g, g, 3) -> map (B, T, gh, gw, 1280), pooled (B, T, 1280);
+        the glancer in train mode when ``train``."""
+        b, t = frames_small.shape[:2]
+        fmap, pooled = self._glancer_features(frames_small, train)
         fmap = fmap.permute(0, 2, 3, 1)
         return fmap.reshape((b, t) + fmap.shape[1:]), pooled.reshape(b, t, -1)
+
+    def glance_logits(self, frames_small: torch.Tensor, train: bool = False,
+                      keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stage-0 glancer head: (B, T, g, g, 3) -> logits (B, T, classes).
+        ``keep`` is the dropout mask (B*T, 1280) in train mode
+        (``MobileNetV2.classify``)."""
+        b, t = frames_small.shape[:2]
+        _, pooled = self._glancer_features(frames_small, train)
+        return self.glancer.classify(pooled, keep).reshape(b, t, -1)
 
     # ---- phase 2: policy -------------------------------------------------
 
@@ -208,14 +239,25 @@ class GFV(nn.Module):
 
     # ---- phase 3: focus + classify ---------------------------------------
 
-    def focus(self, patches: torch.Tensor) -> torch.Tensor:
-        """(N, P, P, 3) -> (N, 2048) pooled focuser features."""
-        x = patches.to(self.cfg.dtype).permute(0, 3, 1, 2)
-        return self.focuser.features(x)[1]
+    def focus(self, patches: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """(N, P, P, 3) -> (N, 2048) pooled focuser features; the focuser in
+        train mode when ``train``."""
+        _set_mode(self.focuser, train)
+        return self.focuser.features(patches.to(self.cfg.dtype).permute(0, 3, 1, 2))[1]
+
+    def focus_logits(self, patches: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Stage-0 focuser head: (N, P, P, 3) -> logits (N, classes)."""
+        _set_mode(self.focuser, train)
+        return self.focuser(patches.to(self.cfg.dtype).permute(0, 3, 1, 2))
 
     def classify_seq(self, fused: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> per-step logits (B, T, classes)."""
         return self.classifier(fused)
+
+
+def _set_mode(module: nn.Module, train: bool) -> None:
+    if module.training != train:
+        module.train(train)
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +277,7 @@ def extract_for_frames(frames: torch.Tensor, actions: torch.Tensor,
     """(B, T, S, S, C) frames + (B, T, 2) actions -> (B*T, P, P, C).
 
     On the GPU one kernel launch computes the offsets (``patch_offsets``)
-    and the patches."""
+    and the patches. Differentiable with respect to ``frames``."""
     return extract_patches_at(frames, actions, image_size, patch_size)
 
 
@@ -280,12 +322,13 @@ def inference(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
     """
     frames, frames_small = _on_model_device(model, device, frames, frames_small)
     use_fused = fused_enabled(fused)
-    if use_fused:
-        fmap, pooled = fused_glance(model, frames_small)
-        roll = model.policy_rollout(fmap)
-    else:
-        _, pooled, roll = glance_policy_actions(model, frames_small)
-    return _focus_and_classify(model, frames, pooled, roll["actions"], use_fused)
+    with model.autocast():
+        if use_fused:
+            fmap, pooled = fused_glance(model, frames_small)
+            roll = model.policy_rollout(fmap)
+        else:
+            _, pooled, roll = glance_policy_actions(model, frames_small)
+        return _focus_and_classify(model, frames, pooled, roll["actions"], use_fused)
 
 
 @torch.inference_mode()
@@ -297,5 +340,26 @@ def inference_with_actions(model: GFV, frames: torch.Tensor,
     ``inference``."""
     frames, frames_small, actions = _on_model_device(
         model, device, frames, frames_small, actions)
-    _, pooled = model.glance(frames_small)
-    return _focus_and_classify(model, frames, pooled, actions)
+    with model.autocast():
+        _, pooled = model.glance(frames_small)
+        return _focus_and_classify(model, frames, pooled, actions)
+
+
+def forward_random(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
+                   generator: torch.Generator, train: bool = True,
+                   actions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stage-1 forward on random patches: glance, extraction at uniform
+    random actions drawn from ``generator`` (on the model's device), focus
+    and classify, both backbones in train mode when ``train`` (their
+    running statistics advance). ``actions`` (B, T, 2) replaces the draw.
+    Records autograd as the caller's grad mode says; runs under
+    ``model.autocast()``. Returns per-step logits (B, T, classes)."""
+    cfg = model.cfg
+    b, t = frames_small.shape[:2]
+    if actions is None:
+        actions = random_patch_actions((b, t), generator, model.device)
+    with model.autocast():
+        _, pooled = model.glance(frames_small, train)
+        patches = extract_for_frames(frames, actions, cfg.image_size, cfg.patch_size)
+        local = model.focus(patches, train).reshape(b, t, -1)
+        return fuse_and_classify(model, pooled, local)

@@ -66,6 +66,8 @@ class GRUCell(nn.Module):
             hs.append(h)
         return h, torch.stack(hs)
 
-    def initial_state(self, batch: int) -> torch.Tensor:
-        w = self.weight_hh
-        return torch.zeros(batch, self.hidden_size, dtype=w.dtype, device=w.device)
+    def initial_state(self, batch: int, dtype: torch.dtype) -> torch.Tensor:
+        """Zeros (B, H) in ``dtype``, the compute dtype (the inputs', which
+        under autocast is not the parameters')."""
+        return torch.zeros(batch, self.hidden_size, dtype=dtype,
+                           device=self.weight_hh.device)

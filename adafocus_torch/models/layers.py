@@ -3,6 +3,10 @@
 Modules take NCHW tensors; on the GPU they are kept in
 ``torch.channels_last`` memory, the layout cuDNN's bf16 convolutions
 prefer and the one the JAX package computes in.
+
+BatchNorm in train mode follows flax's ``nn.BatchNorm`` (momentum 0.9,
+statistics in float32), not torch's: the running variance takes the
+*biased* batch variance.
 """
 
 from __future__ import annotations
@@ -11,11 +15,42 @@ from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+# flax's BatchNorm momentum: running = MOMENTUM * running + (1 - MOMENTUM) * batch
+MOMENTUM = 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-5) whose train-mode running statistics
+    follow flax: ``running = 0.9 * running + 0.1 * batch`` for the mean and
+    for the *biased* variance, both in float32 whatever the input's dtype.
+    Torch would take the unbiased variance, n / (n - 1) times larger (4/3 at
+    n = 4 values a channel). Eval mode and the state-dict keys are
+    ``nn.BatchNorm2d``'s."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # momentum 1 into fresh float32 buffers leaves exactly this batch's
+        # mean and unbiased variance there
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():    # (batch_norm's backward reads mean and var)
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var * ((n - 1) / n))):
+                running.copy_(running * MOMENTUM + batch * (1.0 - MOMENTUM))
+        return y
 
 
 class ConvBNAct(nn.Module):
-    """Conv2d (no bias) + BatchNorm (eps 1e-5, momentum 0.1) + optional
-    activation. Padding is ``(k - 1) // 2`` on both sides."""
+    """Conv2d (no bias) + BatchNorm (``BatchNorm2d``) + optional activation.
+    Padding is ``(k - 1) // 2`` on both sides."""
 
     def __init__(
         self,
@@ -31,7 +66,7 @@ class ConvBNAct(nn.Module):
             in_channels, out_channels, kernel_size, stride=stride,
             padding=(kernel_size - 1) // 2, groups=groups, bias=False,
         )
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

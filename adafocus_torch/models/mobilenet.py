@@ -8,7 +8,7 @@ temporal-shift (TSM) variant is not ported yet.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,7 +49,7 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV2(nn.Module):
     """``features`` returns (pre-pool map, pooled vector); ``classify`` is
-    the stage-0 pretraining head (dropout is the identity in eval mode)."""
+    the stage-0 pretraining head, with dropout 0.2 in train mode."""
 
     def __init__(self, num_classes: int = 1000):
         super().__init__()
@@ -67,7 +67,7 @@ class MobileNetV2(nn.Module):
                 self.block_names.append(name)
                 in_c = out_c
         self.head_conv = ConvBNAct(in_c, self.feature_dim, kernel_size=1)
-        self.dropout = nn.Dropout(0.2)
+        self.dropout_rate = 0.2
         self.classifier = nn.Linear(self.feature_dim, num_classes)
 
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
@@ -81,5 +81,13 @@ class MobileNetV2(nn.Module):
         fmap = self.backbone(x)
         return fmap, global_avg_pool(fmap)
 
-    def classify(self, pooled: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.dropout(pooled))
+    def classify(self, pooled: torch.Tensor, keep: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+        """(N, 1280) -> (N, classes). In train mode, dropout as flax applies
+        it (``where(keep, x / 0.8, 0)``): ``keep`` is the boolean mask of
+        kept units, drawn from torch's default generator when None."""
+        if self.training:
+            if keep is None:
+                keep = torch.rand(pooled.shape, device=pooled.device) < 1.0 - self.dropout_rate
+            pooled = torch.where(keep, pooled / (1.0 - self.dropout_rate), 0.0)
+        return self.classifier(pooled)

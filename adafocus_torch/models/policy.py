@@ -84,7 +84,7 @@ class ActorCritic(nn.Module):
         t, b = fmaps_tb.shape[:2]
         states = self.encoder(fmaps_tb.reshape((t * b,) + fmaps_tb.shape[2:]))
         _, hiddens = self.gru.scan_time(
-            self.gru.initial_state(b), states.reshape(t, b, -1)
+            self.gru.initial_state(b, states.dtype), states.reshape(t, b, -1)
         )
         return hiddens, self.actor(hiddens), self.critic(hiddens)[..., 0]
 

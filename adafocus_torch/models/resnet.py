@@ -42,8 +42,8 @@ _RESNET50_STAGES = (3, 4, 6, 3)
 
 
 class ResNet(nn.Module):
-    """ResNet-50. ``fc`` is the stage-0 pretraining head; inference reads
-    only ``features``."""
+    """ResNet-50. ``forward`` is the stage-0 pretraining head (``features``,
+    then ``fc``); inference reads only ``features``."""
 
     def __init__(self, num_classes: int = 1000):
         super().__init__()
@@ -72,6 +72,10 @@ class ResNet(nn.Module):
         """(N, 3, H, W) -> (map (N, 2048, h, w), pooled (N, 2048))."""
         fmap = self.backbone(x)
         return fmap, global_avg_pool(fmap)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 3, H, W) -> logits (N, classes)."""
+        return self.fc(self.features(x)[1])
 
 
 def resnet50(num_classes: int = 1000) -> ResNet:

@@ -12,14 +12,21 @@ not carried over: the CUDA kernel takes any H, W, P and C.
 for a CUDA tensor and runs the plain version for a CPU tensor.
 ``extract_patches_at`` does the same from [0, 1] actions, with
 ``patch_offsets`` computed inside the kernel. The kernel copies 16-byte
-words over a grid of row bands, which ``plan_patch_extract`` sizes. There
-is no backward yet; the JAX VJP is a scatter and comes with the training slice.
+words over a grid of row bands, which ``plan_patch_extract`` sizes.
+
+Both are differentiable with respect to the frames when a gradient is asked
+for (``_ExtractPatches``). The backward is the JAX package's VJP
+``_extract_bwd``: each patch's cotangent goes into a zero frame at its
+window. That VJP is an XLA scatter, not a Pallas kernel, so here it is
+plain PyTorch (advanced indexing into ``zeros``) on every device; it is no
+library stand-in for a TPU kernel. The training steps never ask for it, since
+frames are inputs.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -79,23 +86,50 @@ def patch_offsets(actions: torch.Tensor, image_size: int, patch_size: int
     return offs.clamp(0, span)
 
 
+def random_patch_actions(shape: Tuple[int, ...], generator: torch.Generator,
+                         device: Optional[torch.device] = None) -> torch.Tensor:
+    """Uniform random patch actions in [0, 1), (*shape, 2) float32, the
+    stage-1 random-patch baseline, drawn from ``generator`` on ``device``
+    (the generator's device when None)."""
+    return torch.rand(tuple(shape) + (2,), generator=generator,
+                      device=generator.device if device is None else device)
+
+
+def _windows(shape: torch.Size, offsets: torch.Tensor, patch_size: int):
+    """Index tensors (batch, rows, cols) of the (P, P) window of each of the
+    N frames of ``shape`` (N, H, W, C) at ``offsets`` (N, 2), each start
+    handled as ``lax.dynamic_slice`` handles it."""
+    n, h, w, _ = shape
+    p = patch_size
+    offsets = offsets.to(torch.long)
+    y, x = offsets[:, 0], offsets[:, 1]
+    y = torch.where(y < 0, y + h, y).clamp(0, h - p)
+    x = torch.where(x < 0, x + w, x).clamp(0, w - p)
+    ar = torch.arange(p, device=offsets.device)
+    rows = (y[:, None] + ar)[:, :, None]
+    cols = (x[:, None] + ar)[:, None, :]
+    batch = torch.arange(n, device=offsets.device)[:, None, None]
+    return batch, rows, cols
+
+
 def extract_patches_reference(frames: torch.Tensor, offsets: torch.Tensor,
                               patch_size: int) -> torch.Tensor:
     """Plain PyTorch version, by advanced indexing.
 
     frames (N, H, W, C), offsets (N, 2) integer (y, x) -> (N, P, P, C).
     """
-    n, h, w, _ = frames.shape
-    p = patch_size
-    offsets = offsets.to(device=frames.device, dtype=torch.long)
-    y, x = offsets[:, 0], offsets[:, 1]
-    y = torch.where(y < 0, y + h, y).clamp(0, h - p)
-    x = torch.where(x < 0, x + w, x).clamp(0, w - p)
-    ar = torch.arange(p, device=frames.device)
-    rows = (y[:, None] + ar)[:, :, None]
-    cols = (x[:, None] + ar)[:, None, :]
-    batch = torch.arange(n, device=frames.device)[:, None, None]
-    return frames[batch, rows, cols]
+    return frames[_windows(frames.shape, offsets.to(frames.device), patch_size)]
+
+
+def scatter_patches(grad: torch.Tensor, offsets: torch.Tensor, shape: torch.Size,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The VJP of extraction (JAX ``_extract_bwd``): patch cotangents (N, P,
+    P, C) into zero frames of ``shape`` (N, H, W, C) and ``dtype``, each at
+    its window. A sample's window covers distinct pixels, so nothing is
+    accumulated and the result is exact on every device."""
+    out = torch.zeros(shape, dtype=dtype, device=grad.device)
+    out[_windows(shape, offsets.to(grad.device), grad.shape[1])] = grad.to(dtype)
+    return out
 
 
 def _check_frames(frames: torch.Tensor, patch_size: int) -> None:
@@ -161,19 +195,63 @@ def _launch(frames: torch.Tensor, patch_size: int, offsets: Optional[torch.Tenso
     return out
 
 
+def _extract(frames: torch.Tensor, offsets: Optional[torch.Tensor],
+             actions: Optional[torch.Tensor], image_size: int, patch_size: int
+             ) -> torch.Tensor:
+    """(N, H, W, C) frames -> (N, P, P, C) patches at ``offsets`` (N, 2), or
+    at ``patch_offsets(actions)`` for (B, T, 2) actions with B*T = N: the
+    kernel on a CUDA tensor (one launch), the plain version on the CPU."""
+    if frames.device.type == "cpu":
+        if offsets is None:
+            offsets = patch_offsets(actions.reshape(-1, 2), image_size, patch_size)
+        return extract_patches_reference(frames, offsets, patch_size)
+    if offsets is not None:
+        return _launch(frames, patch_size, offsets=offsets)
+    return _launch(frames, patch_size, actions=actions.to(torch.float32),
+                   span=image_size - patch_size)
+
+
+class _ExtractPatches(torch.autograd.Function):
+    """Extraction under autograd. Saves the offsets (or the actions they
+    come from) and the frames' shape and dtype, never the frames: the
+    frames are an input, so keeping them would only hold memory."""
+
+    @staticmethod
+    def forward(ctx, frames, offsets, actions, image_size, patch_size):
+        ctx.save_for_backward(offsets if actions is None else actions)
+        ctx.from_actions = actions is not None
+        ctx.sizes = (image_size, patch_size)
+        ctx.frames = (frames.shape, frames.dtype)
+        return _extract(frames, offsets, actions, image_size, patch_size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (saved,) = ctx.saved_tensors
+        image_size, patch_size = ctx.sizes
+        offsets = (patch_offsets(saved.reshape(-1, 2), image_size, patch_size)
+                   if ctx.from_actions else saved)
+        return scatter_patches(grad, offsets, *ctx.frames), None, None, None, None
+
+
+def _differentiable(frames, offsets, actions, image_size, patch_size):
+    if torch.is_grad_enabled() and frames.requires_grad:
+        return _ExtractPatches.apply(frames, offsets, actions, image_size, patch_size)
+    return _extract(frames, offsets, actions, image_size, patch_size)
+
+
 def extract_patches(frames: torch.Tensor, offsets: torch.Tensor,
                     patch_size: int) -> torch.Tensor:
     """Extract (P, P) patches at per-sample offsets: (N, H, W, C) -> (N, P, P, C).
 
     On a CUDA tensor this always launches the CUDA kernel (and raises if it
     cannot be built or launched); on a CPU tensor it runs
-    ``extract_patches_reference``.
+    ``extract_patches_reference``. Differentiable with respect to
+    ``frames``.
     """
-    if frames.device.type == "cpu":
-        return extract_patches_reference(frames, offsets, patch_size)
-    _check_frames(frames, patch_size)
-    _check_offsets(frames, offsets)
-    return _launch(frames, patch_size, offsets=offsets)
+    if frames.device.type != "cpu":
+        _check_frames(frames, patch_size)
+        _check_offsets(frames, offsets)
+    return _differentiable(frames, offsets, None, 0, patch_size)
 
 
 # kernel launches since the last reset; tests and chip_smoke.py read it to
@@ -189,16 +267,13 @@ def extract_patches_at(frames: torch.Tensor, actions: torch.Tensor, image_size: 
 
     On a CUDA tensor one kernel launch computes the offsets and the patches,
     reading the actions where they lie; on a CPU tensor it runs the two
-    plain steps.
+    plain steps. Differentiable with respect to ``frames``.
     """
     b, t = frames.shape[:2]
     flat = frames.reshape((b * t,) + frames.shape[2:])
-    if frames.device.type == "cpu":
-        offs = patch_offsets(actions.reshape(b * t, 2), image_size, patch_size)
-        return extract_patches_reference(flat, offs, patch_size)
-    _check_frames(flat, patch_size)
-    if tuple(actions.shape) != (b, t, 2) or actions.device != frames.device:
-        raise ValueError(f"actions must be ({b}, {t}, 2) on the frames' device, got "
-                         f"{tuple(actions.shape)} on {actions.device}")
-    return _launch(flat, patch_size, actions=actions.to(torch.float32),
-                   span=image_size - patch_size)
+    if frames.device.type != "cpu":
+        _check_frames(flat, patch_size)
+        if tuple(actions.shape) != (b, t, 2) or actions.device != frames.device:
+            raise ValueError(f"actions must be ({b}, {t}, 2) on the frames' device, got "
+                             f"{tuple(actions.shape)} on {actions.device}")
+    return _differentiable(flat, None, actions, image_size, patch_size)

@@ -1,0 +1,102 @@
+"""Per-stage optimizers (counterpart of adafocus_tpu/train/optim.py): SGD
+with momentum, a backbone and an fc learning rate, cosine or step
+schedules, stage-wise freezing.
+
+The JAX package chains optax's ``add_decayed_weights(wd)`` and
+``sgd(schedule, momentum)``: g + wd * p goes into the momentum trace
+(trace = g + momentum * trace), then p -= lr * trace. That is
+``torch.optim.SGD(momentum, dampening=0, nesterov=False, weight_decay=wd)``,
+here with one parameter group for ``backbone_lr`` and one for ``fc_lr``.
+optax evaluates the schedule at the update count, starting at 0; a
+``LambdaLR`` stepped after every update does the same.
+
+Freezing: the JAX package labels a frozen component ``set_to_zero``; here
+its parameters get ``requires_grad=False`` and stay out of the optimizer.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+# component -> parameter group, per stage; a component not listed is frozen
+# ('selector' is the AdaFocus+ head, not ported yet)
+_STAGE_LABELS: Dict[int, Dict[str, str]] = {
+    0: {"glancer": "backbone", "focuser": "backbone", "classifier": "fc",
+        "policy": "frozen", "selector": "fc"},
+    1: {"glancer": "frozen", "focuser": "backbone", "classifier": "fc",
+        "policy": "frozen", "selector": "fc"},
+    3: {"glancer": "frozen", "focuser": "frozen", "classifier": "fc",
+        "policy": "frozen", "selector": "fc"},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    backbone_lr: float = 0.01
+    fc_lr: float = 0.005
+    momentum: float = 0.9
+    weight_decay: float = 1e-4
+    lr_type: str = "cos"        # 'cos' | 'step'
+    lr_steps: tuple = (30, 60)  # epoch milestones for 'step'
+    epochs: int = 50
+    steps_per_epoch: int = 1000
+    tsn_policies: bool = False  # per-parameter-type focuser groups: not ported yet
+
+
+def stage_trainable(stage: int) -> Dict[str, str]:
+    """The freeze matrix row of ``stage``: component -> 'backbone' | 'fc' |
+    'frozen'."""
+    if stage not in _STAGE_LABELS:
+        raise ValueError(f"stage {stage} has no supervised optimizer "
+                         "(stage 2 trains by PPO)")
+    return _STAGE_LABELS[stage]
+
+
+def _lr_factor(cfg: OptimConfig) -> Callable[[int], float]:
+    """Update count -> the schedule's multiplier of the base rate."""
+    spe = max(cfg.steps_per_epoch, 1)
+    if cfg.lr_type == "cos":
+        return lambda step: 0.5 * (1.0 + math.cos(math.pi * (step / spe) / cfg.epochs))
+    if cfg.lr_type == "step":
+        return lambda step: 0.1 ** sum(step / spe >= m for m in cfg.lr_steps)
+    raise ValueError(f"unknown lr_type {cfg.lr_type}")
+
+
+def lr_schedule(base_lr: float, cfg: OptimConfig) -> Callable[[int], float]:
+    """Update count -> learning rate: cos ``0.5 * lr * (1 + cos(pi * epoch /
+    epochs))``, step ``lr * 0.1^(milestones passed)``, with epoch = count /
+    steps_per_epoch."""
+    factor = _lr_factor(cfg)
+    return lambda step: base_lr * factor(step)
+
+
+def make_stage_optimizer(model: nn.Module, stage: int, cfg: OptimConfig,
+                         partial_bn: bool = False
+                         ) -> Tuple[torch.optim.SGD, torch.optim.lr_scheduler.LambdaLR]:
+    """The optimizer of ``stage`` over a GFV's components and its schedule.
+
+    Sets ``requires_grad`` on every component from the freeze matrix (frozen
+    components get False and stay out of the optimizer). Call
+    ``scheduler.step()`` after each ``optimizer.step()``.
+    """
+    if cfg.tsn_policies or partial_bn:
+        raise NotImplementedError(
+            "tsn_policies and partial_bn (the sth-sth focuser groups) are not ported yet")
+    labels = stage_trainable(stage)
+    groups = {"backbone": [], "fc": []}
+    for name, module in model.named_children():
+        label = labels.get(name, "frozen")
+        module.requires_grad_(label != "frozen")
+        if label != "frozen":
+            groups[label] += list(module.parameters())
+    base = {"backbone": cfg.backbone_lr, "fc": cfg.fc_lr}
+    optimizer = torch.optim.SGD(
+        [{"params": params, "lr": base[label], "name": label}
+         for label, params in groups.items() if params],
+        momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, _lr_factor(cfg))

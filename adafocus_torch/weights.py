@@ -54,10 +54,11 @@ def _convert_leaf(path: tuple, value: np.ndarray):
     raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart in the port")
 
 
-def gfv_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+def gfv_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
+                             dtype: torch.dtype = torch.float32
                              ) -> Dict[str, torch.Tensor]:
     """Flax ``params`` and ``batch_stats`` of a GFV (nested dicts of numpy
-    arrays) -> the port's ``GFV`` state dict (float32 CPU tensors)."""
+    arrays) -> the port's ``GFV`` state dict (CPU tensors in ``dtype``)."""
     sd: Dict[str, torch.Tensor] = {}
     for collection in (params, batch_stats):
         for path, value in _flatten(collection).items():
@@ -65,7 +66,7 @@ def gfv_state_dict_from_flax(params: Mapping, batch_stats: Mapping
             key = ".".join(mods)
             if key in sd:
                 raise KeyError(f"two flax leaves map to {key}")
-            sd[key] = torch.tensor(value, dtype=torch.float32)
+            sd[key] = torch.tensor(value, dtype=dtype)
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -38,12 +38,25 @@ Phases, each raising on failure:
      patch kernel from the policy's actions there as in phase 4, profiles
      three forwards on the cuDNN path (``torch.profiler``): each phase's
      device window, busy and idle time, the extraction phase split into its
-     patch kernel, other kernels and device idle.
+     patch kernel, other kernels and device idle;
+  6. training on the card (``adafocus_torch.train``): the patch kernel under
+     autograd (forward and backward from actions and from offsets against
+     the plain version on the CPU, bit for bit); the stage-1 step, this
+     slice's main path, on the bf16 flagship at B=64 (float32 parameters,
+     bf16 compute), two warm-up and five timed steps with the launch counts
+     set to 0 just before: videos/s, the split into glance, extraction,
+     focus, classify, backward and optimizer by CUDA events, peak memory,
+     exactly one patch launch a step, a finite loss, the glancer and policy
+     bit-identical and every focuser and classifier tensor moved; one step
+     in bf16, float32 (TF32 off) and float64 on the same weights, batch and
+     actions at B=8 (losses, and each trained component's gradient cosine
+     and norm ratio: float32 against float64, bf16 against float32); stages
+     0 and 3 and the eval step at B=2 with the same checks, untimed.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
-instruction), the profile and the kernel table as JSON lines, then as its
-last line
+instruction), the profile, the stage-1 timing and the kernel table as JSON
+lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -52,6 +65,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -675,6 +689,291 @@ def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 1
     return vps, phases
 
 
+# phase 6, one stage-1 step in three precisions on the same weights, batch
+# and actions. float32 (TF32 off) against float64: the loss and every
+# trained component's gradient direction. bf16 against float32: the loss
+# and the classifier's gradient direction; the focuser's bf16 gradient at
+# random initialisation is decorrelated from the float32 one by the
+# train-mode BatchNorm backward's conditioning (in the JAX package too), so
+# only its norm is held
+F32_LOSS_REL_TOL, F32_GRAD_MIN_COS = 1e-4, 0.99
+BF16_LOSS_REL_TOL, BF16_CLASSIFIER_MIN_COS = 3e-2, 0.98
+BF16_FOCUSER_NORM_RATIO = (0.8, 1.25)
+TRAIN_B = 64                 # the reference's batch (configs/actnet_default.yaml)
+TRAIN_COMPARE_B = 8          # batch of the precision checks
+TRAIN_SMALL_B = 2            # stages 0 and 3 and eval
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5
+
+
+def _train_batch(cfg, b, device, seed, dtype):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t, s, g = cfg.num_frames, cfg.image_size, cfg.glance_size
+    return {"frames": torch.randn((b, t, s, s, 3), generator=gen, device=device, dtype=dtype),
+            "frames_small": torch.randn((b, t, g, g, 3), generator=gen, device=device,
+                                        dtype=dtype),
+            "labels": torch.randint(0, cfg.num_classes, (b,), generator=gen, device=device)}
+
+
+def _snapshot(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def check_train_update(before: dict, model, stage: int, label: str) -> None:
+    """After train steps of ``stage``: every tensor (parameter or running
+    statistic) of a frozen component bit-identical; every parameter of a
+    trained component moved, except one that is zero and got a zero
+    gradient (``focuser.fc.bias`` in stage 1: off the loss path, so weight
+    decay leaves it at 0); the running statistics of a trained backbone
+    moved."""
+    import torch
+
+    from adafocus_torch.train.optim import stage_trainable
+
+    labels = stage_trainable(stage)
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    after = model.state_dict()
+    still = []
+    for key, old in before.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        comp = key.split(".")[0]
+        same = torch.equal(old, after[key])
+        if labels.get(comp, "frozen") == "frozen":
+            if not same:
+                raise AssertionError(f"{label}: frozen {key} changed")
+        elif same:
+            g = grads.get(key)
+            if key in grads and not old.any() and (g is None or not g.any()):
+                still.append(key)
+            else:
+                raise AssertionError(f"{label}: trained {key} did not move")
+    print(f"{label}: frozen components bit-identical, every trained tensor moved "
+          f"(zero, with zero gradient, so unmoved: {still})", flush=True)
+
+
+def check_patch_backward(device) -> None:
+    """The patch Function's backward on the card (from offsets with starts
+    that wrap and clamp, and from actions) against the plain version on the
+    CPU, bit for bit; the forward launches the kernel once."""
+    import torch
+
+    from adafocus_torch.ops.patch import extract_patches, extract_patches_at
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    b, t, s, p = 2, 16, 224, 96
+    frames = torch.randn((b, t, s, s, 3), generator=gen).bfloat16()
+    actions = torch.rand((b, t, 2), generator=gen)
+    offs = torch.randint(-60, 260, (b * t, 2), generator=gen, dtype=torch.int32)
+    cot = torch.randn((b * t, p, p, 3), generator=gen).bfloat16()
+    for name, fn, args in (
+            ("from actions", lambda f, a: extract_patches_at(f, a, s, p), (actions,)),
+            ("from offsets", lambda f, o: extract_patches(f.reshape(b * t, s, s, 3), o, p),
+             (offs,))):
+        grads = []
+        for dev in (device, torch.device("cpu")):
+            src = frames.to(dev, copy=True).requires_grad_()
+            before = _launch_counts()["extract_patches"]
+            out = fn(src, *(a.to(dev) for a in args))
+            if dev.type == "cuda" and _launch_counts()["extract_patches"] != before + 1:
+                raise AssertionError("the patch Function did not launch the kernel once")
+            out.backward(cot.to(dev))
+            grads.append((out.detach().cpu(), src.grad.cpu()))
+        (out_g, grad_g), (out_c, grad_c) = grads
+        if not (torch.equal(out_g, out_c) and torch.equal(grad_g, grad_c)):
+            raise AssertionError(f"patch Function {name}: the card's forward or backward "
+                                 "differs from the plain version on the CPU")
+        print(f"patch Function {name}, B={b} T={t} {s}^2 P={p} bf16: forward and backward "
+              "on the card bit-identical to the CPU's plain version", flush=True)
+
+
+def train_stage1_timed(device, card: str) -> dict:
+    """Phase 6, the main path: the stage-1 step on the bf16 flagship at
+    B=64, TRAIN_WARMUP + TRAIN_TIMED steps with the launch counts set to 0
+    just before; videos/s and each phase's ms by CUDA events over the timed
+    steps, peak memory; exactly one patch launch a step; finite loss; frozen
+    glancer and policy bit-identical, the focuser and classifier moved."""
+    import torch
+
+    from adafocus_torch.models.gfv import flagship
+    from adafocus_torch.train.stages import create_train_state, make_stage_train_step
+
+    cfg = flagship()
+    state = create_train_state(cfg, 1, device=device,
+                               generator=torch.Generator().manual_seed(SEED))
+    model = state.model
+    step = make_stage_train_step(model, 1, state.optimizer, state.scheduler)
+    batch = _train_batch(cfg, TRAIN_B, device, SEED + 7, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    before = _snapshot(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _launch_counts(reset=True)
+    steps, losses = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(phase):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((phase, ev))
+
+        metrics = step(batch, gen, mark=mark)
+        losses.append(metrics["loss"])
+        if i >= TRAIN_WARMUP:
+            steps.append(marks)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    if launches["extract_patches"] != n_steps:
+        raise AssertionError(f"stage 1: {launches['extract_patches']} patch launches in "
+                             f"{n_steps} steps, want exactly one a step")
+    peak = torch.cuda.max_memory_allocated(device)
+    step_ms = [m[0][1].elapsed_time(m[-1][1]) for m in steps]
+    phase_ms = {}
+    for m in steps:
+        for (_, a), (name, b) in zip(m, m[1:]):
+            phase_ms[name] = phase_ms.get(name, 0.0) + a.elapsed_time(b) / len(steps)
+    vps = [TRAIN_B / (ms / 1e3) for ms in step_ms]
+    loss = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in loss):
+        raise AssertionError(f"stage 1 losses {loss}")
+    check_train_update(before, model, 1, f"stage 1 B={TRAIN_B}")
+    print(f"train stage 1 bf16 B={TRAIN_B} T={cfg.num_frames}: videos/s {vps!r} (mean "
+          f"{TRAIN_B * len(step_ms) / (sum(step_ms) / 1e3)!r}); step ms {step_ms!r}; phase ms "
+          f"{json.dumps(phase_ms)}; peak memory {peak} B ({peak / 2**30:.2f} GiB); patch "
+          f"launches {launches['extract_patches']} in {n_steps} steps; losses {loss} ({card})",
+          flush=True)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return {"videos_per_s": vps, "step_ms": step_ms, "phase_ms": phase_ms, "peak_bytes": peak,
+            "launches": launches, "losses": loss}
+
+
+def train_precisions(device) -> dict:
+    """Phase 6: one stage-1 step of the flagship in bf16 compute, float32
+    (TF32 off) and float64, each over float32-initialised parameters from
+    the same seed, on the same batch and injected actions at
+    B=TRAIN_COMPARE_B; compares each trained component's gradient."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV, flagship
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.train.optim import OptimConfig, make_stage_optimizer
+    from adafocus_torch.train.stages import make_stage_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = flagship()
+    b, t = TRAIN_COMPARE_B, cfg16.num_frames
+    batch = _train_batch(cfg16, b, device, SEED + 9, torch.float32)
+    actions = random_patch_actions((b, t), torch.Generator(device=device).manual_seed(SEED),
+                                   device)
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        # float32 parameters, except the float64 model's
+        model = GFV(dataclasses.replace(cfg16, dtype=dtype), device=device,
+                    generator=torch.Generator().manual_seed(SEED),
+                    param_dtype=torch.promote_types(dtype, torch.float32))
+        step = make_stage_train_step(model, 1, *make_stage_optimizer(model, 1, OptimConfig()))
+        # float32 inputs for all three: each model casts them to its compute
+        # dtype (exactly, for float64), after the patch kernel's copy
+        loss = float(step(batch, None, actions=actions)["loss"])
+        grads = {comp: torch.cat([p.grad.flatten().double()
+                                  for p in getattr(model, comp).parameters()])
+                 for comp in ("focuser", "classifier")}
+        runs[str(dtype).removeprefix("torch.")] = (loss, grads)
+        del model, step
+        torch.cuda.empty_cache()
+
+    def compare(name, ref):
+        (loss, g), (loss_ref, g_ref) = runs[name], runs[ref]
+        cos = {c: float(torch.nn.functional.cosine_similarity(g[c], g_ref[c], dim=0)) for c in g}
+        norm = {c: float(g[c].norm() / g_ref[c].norm()) for c in g}
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        print(f"train stage 1 B={b}, {name} vs {ref} (TF32 off), one step on the same weights, "
+              f"batch and actions: loss {loss!r} vs {loss_ref!r}, relative {rel!r}; gradient "
+              f"cosine {cos}; gradient norm ratio {norm}", flush=True)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{name} loss {loss}")
+        return rel, cos, norm
+
+    rel32, cos32, _ = compare("float32", "float64")
+    rel16, cos16, norm16 = compare("bfloat16", "float32")
+    checks = [("float32 loss", rel32 <= F32_LOSS_REL_TOL),
+              ("bf16 loss", rel16 <= BF16_LOSS_REL_TOL),
+              ("bf16 classifier cosine", cos16["classifier"] >= BF16_CLASSIFIER_MIN_COS),
+              ("bf16 focuser norm", BF16_FOCUSER_NORM_RATIO[0] <= norm16["focuser"]
+               <= BF16_FOCUSER_NORM_RATIO[1])]
+    checks += [(f"float32 {c} cosine", v >= F32_GRAD_MIN_COS) for c, v in cos32.items()]
+    failed = [name for name, ok in checks if not ok]
+    print(f"precision limits: float32 vs float64 loss <= {F32_LOSS_REL_TOL}, cosine >= "
+          f"{F32_GRAD_MIN_COS}; bf16 vs float32 loss <= {BF16_LOSS_REL_TOL}, classifier cosine "
+          f">= {BF16_CLASSIFIER_MIN_COS}, focuser norm ratio in {BF16_FOCUSER_NORM_RATIO}; "
+          f"failed: {failed}", flush=True)
+    if failed:
+        raise AssertionError(f"training precision checks failed: {failed}")
+    return {"float32_vs_float64": {"loss_rel": rel32, "grad_cos": cos32},
+            "bf16_vs_float32": {"loss_rel": rel16, "grad_cos": cos16, "grad_norm_ratio": norm16}}
+
+
+def train_small_stages(device) -> dict:
+    """Phase 6: stages 0 and 3 (two steps each) and then the eval step on
+    the bf16 flagship at B=TRAIN_SMALL_B, each with its launch counts set to
+    0 just before: one patch launch a step, finite loss, frozen components
+    bit-identical and trained ones moved; the eval step leaves every tensor
+    as it was and returns finite logits."""
+    import torch
+
+    from adafocus_torch.models.gfv import flagship
+    from adafocus_torch.train.stages import (
+        create_train_state, make_eval_step, make_stage_train_step,
+    )
+
+    cfg = flagship()
+    batch = _train_batch(cfg, TRAIN_SMALL_B, device, SEED + 10, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    launches = {}
+    for stage in (0, 3):
+        state = create_train_state(cfg, stage, device=device,
+                                   generator=torch.Generator().manual_seed(SEED))
+        step = make_stage_train_step(state.model, stage, state.optimizer, state.scheduler)
+        before = _snapshot(state.model)
+        _launch_counts(reset=True)
+        losses = [float(step(batch, gen)["loss"]) for _ in range(2)]
+        launches[f"stage {stage}"] = _launch_counts()
+        if launches[f"stage {stage}"]["extract_patches"] != 2:
+            raise AssertionError(f"stage {stage}: {launches[f'stage {stage}']} in 2 steps")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"stage {stage} losses {losses}")
+        check_train_update(before, state.model, stage, f"stage {stage} B={TRAIN_SMALL_B}")
+        print(f"train stage {stage} bf16 B={TRAIN_SMALL_B}: losses {losses}, launches "
+              f"{launches[f'stage {stage}']}", flush=True)
+    model = state.model   # stage 3's
+    before = _snapshot(model)
+    _launch_counts(reset=True)
+    logits, metrics = make_eval_step(model)(batch)
+    torch.cuda.synchronize()
+    launches["eval"] = _launch_counts()
+    after = model.state_dict()
+    if launches["eval"]["extract_patches"] != 1:
+        raise AssertionError(f"eval: {launches['eval']}")
+    if tuple(logits.shape) != (TRAIN_SMALL_B, cfg.num_frames, cfg.num_classes) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"eval logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits.float()).all())}")
+    if any(not torch.equal(v, after[k]) for k, v in before.items()):
+        raise AssertionError("the eval step changed the model")
+    print(f"eval step bf16 B={TRAIN_SMALL_B}: logits {tuple(logits.shape)} finite, top1 "
+          f"{float(metrics['top1'])}, top5 {float(metrics['top5'])}, launches "
+          f"{launches['eval']}; the model unchanged", flush=True)
+    del state, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -748,11 +1047,27 @@ def main() -> int:
           f"({card})", flush=True)
     if not ext["patch_kernel_ms"] > 0:
         raise AssertionError(f"the profile shows no patch kernel in the extraction phase: {prof}")
-    del frames, small
+    del frames, small, model16
+    torch.cuda.empty_cache()
     done("phase 5")
+    check_patch_backward(device)
+    train = train_stage1_timed(device, card)
+    train["precision"] = train_precisions(device)
+    train_launches = train_small_stages(device)
+    done("phase 6")
+    # the patch kernel's count from the run of this slice's main path, the
+    # stage-1 step; the counts of the other paths beside it
+    rows[0]["launches"] = train["launches"]["extract_patches"]
+    rows[0]["launches_by_path"] = {
+        "inference, cuDNN path, 1 forward": launches["auto"]["extract_patches"],
+        "inference, fused path, 1 forward": launches["on"]["extract_patches"],
+        f"train stage 1, {TRAIN_WARMUP + TRAIN_TIMED} steps": train["launches"]["extract_patches"],
+        **{f"{k}, {1 if k == 'eval' else 2} step(s)": v["extract_patches"]
+           for k, v in train_launches.items()}}
     print(json.dumps({"extraction_profile": prof}), flush=True)
     print(json.dumps({"patch_shapes": patch_shapes}), flush=True)
     print(json.dumps({"fused_shapes": per_shape}), flush=True)
+    print(json.dumps({"train_stage1": train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,11 @@ at every source misalignment (x*C*e mod 16), on an unaligned base, at the N=16 b
 wrap and clamp, in 1-, 2- and 4-byte elements, from offsets and from
 actions.
 
+Under autograd the patch kernel still launches once a forward, and the
+backward (a scatter in plain PyTorch) on the card equals the CPU's bit for
+bit. One stage-1 train step at the tiny configuration on the card leaves
+the frozen glancer and policy bit-identical.
+
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
 whose rounding flips moves by one bf16 ulp). Their cases cover the bf16
@@ -25,10 +30,12 @@ at N=9.
 import pytest
 import torch
 
+from adafocus_torch.models import gfv as tgfv
 from adafocus_torch.models import mobilenet as tmob
 from adafocus_torch.models import resnet as tres
 from adafocus_torch.ops import fused_blocks as tfb
 from adafocus_torch.ops import patch as tpatch
+from adafocus_torch.train import stages as tstages
 
 
 def _rel_err(got, want):
@@ -115,6 +122,65 @@ def test_cuda_extract_at_matches_patch_offsets(c, p, dtype):
     offs = tpatch.patch_offsets(acts.reshape(b * t, 2), s, p)
     want = tpatch.extract_patches_reference(frames.reshape(b * t, s, s, c), offs, p)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("from_actions", [False, True], ids=["offsets", "actions"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cuda_patch_function_matches_cpu(from_actions, dtype):
+    # the kernel once a forward under autograd; forward and backward equal
+    # to the plain version's on the CPU, bit for bit (starts that wrap and
+    # clamp from offsets)
+    _needs_gpu()
+    b, t, s, p = 2, 5, 40, 16
+    gen = torch.Generator().manual_seed(p + int(from_actions))
+    frames = torch.randn((b, t, s, s, 3), generator=gen).to(dtype)
+    cot = torch.randn((b * t, p, p, 3), generator=gen).to(dtype)
+    actions = torch.rand((b, t, 2), generator=gen)
+    offs = torch.randint(-20, 60, (b * t, 2), generator=gen, dtype=torch.int32)
+    results = []
+    for dev in ("cuda", "cpu"):
+        src = frames.to(dev, copy=True).requires_grad_()
+        before = tpatch.extract_patches.launches
+        if from_actions:
+            out = tpatch.extract_patches_at(src, actions.to(dev), s, p)
+        else:
+            out = tpatch.extract_patches(src.reshape(b * t, s, s, 3), offs.to(dev), p)
+        out.backward(cot.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert tpatch.extract_patches.launches == before + 1
+        results.append((out.detach().cpu(), src.grad.cpu()))
+    assert torch.equal(results[0][0], results[1][0])
+    assert torch.equal(results[0][1], results[1][1])
+
+
+@pytest.mark.cuda
+def test_cuda_stage1_step_keeps_frozen_components():
+    _needs_gpu()
+    cfg = tgfv.flagship(tiny=True)
+    state = tstages.create_train_state(cfg, 1, device="cuda",
+                                       generator=torch.Generator().manual_seed(0))
+    model = state.model
+    step = tstages.make_stage_train_step(model, 1, state.optimizer, state.scheduler)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, t, s, g = 2, cfg.num_frames, cfg.image_size, cfg.glance_size
+    batch = {"frames": torch.randn((b, t, s, s, 3), generator=gen, device="cuda"),
+             "frames_small": torch.randn((b, t, g, g, 3), generator=gen, device="cuda"),
+             "labels": torch.tensor([1, 4], device="cuda")}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    launches = tpatch.extract_patches.launches
+    metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    assert tpatch.extract_patches.launches == launches + 1
+    assert torch.isfinite(metrics["loss"])
+    after = model.state_dict()
+    for key, value in before.items():
+        if key.startswith(("glancer.", "policy.")):
+            assert torch.equal(value, after[key]), key
+    assert not torch.equal(before["focuser.stem.conv.weight"], after["focuser.stem.conv.weight"])
+    assert not torch.equal(before["focuser.stem.bn.running_var"],
+                           after["focuser.stem.bn.running_var"])
 
 
 @pytest.mark.cuda
