@@ -9,10 +9,12 @@ package wrote in Pallas becomes a CUDA kernel written for ``sm_90a``
 
 Covered so far: the deployment forward of the ActivityNet family
 (``models.gfv.inference``): glance, greedy policy, patch extraction, focus
-and the GRU classifier; and its supervised training (``train.stages``:
-stages 0, 1 and 3 and the eval step; ``train.optim``).
-``weights.gfv_state_dict_from_flax`` carries the weights of a trained flax
-GFV over.
+and the GRU classifier; and its four-stage training (``train.stages``:
+the supervised stages 0, 1 and 3, the stage-2 PPO step on the sampled
+policy with the random-patch lookahead baseline (``ppo.core``), and the
+eval step; ``train.optim``). ``weights.gfv_state_dict_from_flax`` carries
+the weights of a trained flax GFV over, ``weights.ppo_state_from_flax`` a
+stage-2 learner's Adam state.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises

@@ -2,7 +2,9 @@
 ``RecurrentClassifier`` in adafocus_tpu/models/classifiers.py).
 
 GRU(input = 1280 + 2048 = 3328, hidden = 1024) and a per-step FC. The
-hidden state is an explicit carry; ``step`` is one MDP step.
+hidden state is an explicit carry; ``step`` is one MDP step and
+``lookahead`` one step whose hidden is not carried (the stage-2 random-patch
+baseline).
 """
 
 from __future__ import annotations
@@ -26,6 +28,11 @@ class RecurrentClassifier(nn.Module):
         """One timestep: (h, (B, D)) -> (h', (B, classes))."""
         hidden = self.gru(hidden, feature)
         return hidden, self.fc(hidden)
+
+    def lookahead(self, hidden: torch.Tensor, feature: torch.Tensor) -> torch.Tensor:
+        """One GRU step from ``hidden`` whose result is not carried:
+        (N, H), (N, D) -> logits (N, classes)."""
+        return self.fc(self.gru(hidden, feature))
 
     def forward_with_hiddens(self, features: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,8 +10,9 @@ The deployment forward runs in five phases, batched over B*T:
 
 With ``inference(..., fused="on")`` phases 1 and 4 run each residual block
 of the backbones as one CUDA kernel (models/fused_inference.py). The
-training steps (train/stages.py) compose the same phases with ``train=True``
-and ``forward_random``.
+training steps (train/stages.py) compose the same phases: stages 0, 1 and 3
+with ``train=True`` and ``forward_random``; stage 2 (PPO) with the sampled
+rollout, ``classify_seq_with_hiddens`` and ``classifier_lookahead``.
 
 The public functions keep the JAX package's layouts: frames are
 channels-last (B, T, S, S, 3), feature maps (B, T, gh, gw, C). Inside, the
@@ -224,12 +225,15 @@ class GFV(nn.Module):
 
     # ---- phase 2: policy -------------------------------------------------
 
-    def policy_rollout(self, fmap: torch.Tensor, mode: str = "greedy"
+    def policy_rollout(self, fmap: torch.Tensor, mode: str = "greedy",
+                       generator: Optional[torch.Generator] = None
                        ) -> Dict[str, torch.Tensor]:
         """fmap (B, T, gh, gw, C) -> actions (B, T, 2) float32 in [0, 1]^2,
-        action_idx, logprob and value (B, T)."""
+        action_idx, logprob and value (B, T); mode 'greedy' or 'sample'
+        (drawn from ``generator``)."""
         _, actor_out, value = self.policy.rollout_states(fmap.transpose(0, 1))
-        actions, idx, logprob = sample_rollout(actor_out, mode, self.cfg.action_dim)
+        actions, idx, logprob = sample_rollout(actor_out, mode, self.cfg.action_dim,
+                                               generator)
         return {
             "actions": actions.transpose(0, 1),
             "action_idx": idx.transpose(0, 1),
@@ -253,6 +257,22 @@ class GFV(nn.Module):
     def classify_seq(self, fused: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> per-step logits (B, T, classes)."""
         return self.classifier(fused)
+
+    def classifier_step(self, hidden: torch.Tensor, feature: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One MDP step of the GRU head: (h, (B, D)) -> (h', logits)."""
+        return self.classifier.step(hidden, feature)
+
+    def classify_seq_with_hiddens(self, fused: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, D) -> (per-step logits (B, T, classes), hiddens (B, T, H))."""
+        return self.classifier.forward_with_hiddens(fused)
+
+    def classifier_lookahead(self, hidden: torch.Tensor, feature: torch.Tensor
+                             ) -> torch.Tensor:
+        """Logits of one GRU step from a trajectory's hidden, which is not
+        advanced: (N, H), (N, D) -> (N, classes)."""
+        return self.classifier.lookahead(hidden, feature)
 
 
 def _set_mode(module: nn.Module, train: bool) -> None:

@@ -3,14 +3,15 @@ adafocus_tpu/models/policy.py).
 
 A 1x1-conv state encoder over the glance feature map, a GRU carried across
 the T focus steps, a linear actor over a K-point anchor grid and a scalar
-critic. Only greedy (eval) action selection is ported so far; sampling and
-the continuous Gaussian policy come with the PPO slice.
+critic. Actions are the greedy argmax (eval) or a categorical draw from an
+explicit ``torch.Generator`` (the stage-2 PPO rollout, ``sample_discrete``).
+The continuous Gaussian policy of the sth-sth family is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -89,6 +90,27 @@ class ActorCritic(nn.Module):
         return hiddens, self.actor(hiddens), self.critic(hiddens)[..., 0]
 
 
+def discrete_logprobs(logits: torch.Tensor) -> torch.Tensor:
+    """``log_softmax`` over the K anchors in float32 at least (float64 stays
+    float64): the one computation that the behavior rollout and the PPO
+    evaluate pass share, so that their ratios start at exactly 1."""
+    return F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
+
+
+def sample_discrete(logits: torch.Tensor, generator: torch.Generator
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A categorical draw from the actor's logits (..., K) by Gumbel-max, as
+    ``jax.random.categorical`` draws: ``argmax(logits + G)`` with G =
+    -log(-log(u)), u uniform from ``generator`` (on the logits' device).
+    Returns (idx (...), logprob (...)), the logprob ``discrete_logprobs``
+    gathered at idx."""
+    logp = discrete_logprobs(logits)
+    u = torch.rand(logp.shape, generator=generator, device=logp.device, dtype=logp.dtype)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    idx = (logp + gumbel).argmax(dim=-1)
+    return idx, logp.gather(-1, idx[..., None])[..., 0]
+
+
 def greedy_discrete(logits: torch.Tensor) -> torch.Tensor:
     """Eval-time deterministic action: the first index of the maximum."""
     return logits.argmax(dim=-1)
@@ -99,15 +121,23 @@ def discrete_to_coords(idx: torch.Tensor, action_dim: int) -> torch.Tensor:
     return action_grid(action_dim, device=idx.device)[idx]
 
 
-def sample_rollout(actor_out: torch.Tensor, mode: str, action_dim: int
+def sample_rollout(actor_out: torch.Tensor, mode: str, action_dim: int,
+                   generator: Optional[torch.Generator] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Action selection over a time-major rollout.
 
-    actor_out: (T, B, K) logits. Returns time-major (actions (T, B, 2) f32,
-    idx (T, B), logprob (T, B), zeros in greedy mode).
+    actor_out: (T, B, K) logits. mode 'greedy' takes the argmax, 'sample'
+    draws from ``generator`` (required). Returns time-major (actions (T, B,
+    2) f32, idx (T, B), logprob (T, B) f32, zeros in greedy mode).
     """
-    if mode != "greedy":
-        raise NotImplementedError(f"mode={mode!r}: only 'greedy' is ported")
-    idx = greedy_discrete(actor_out)
-    logprob = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    if mode == "sample":
+        if generator is None:
+            raise ValueError("mode='sample' needs a generator")
+        idx, logprob = sample_discrete(actor_out, generator)
+        logprob = logprob.float()
+    elif mode == "greedy":
+        idx = greedy_discrete(actor_out)
+        logprob = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    else:
+        raise ValueError(f"unknown mode {mode!r}: 'greedy' or 'sample'")
     return discrete_to_coords(idx, action_dim), idx, logprob

@@ -12,24 +12,28 @@ optax evaluates the schedule at the update count, starting at 0; a
 
 Freezing: the JAX package labels a frozen component ``set_to_zero``; here
 its parameters get ``requires_grad=False`` and stay out of the optimizer.
+Stage 2 trains the policy alone, by PPO's Adam (``adafocus_torch.ppo``), and
+has no SGD optimizer.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
 
-# component -> parameter group, per stage; a component not listed is frozen
-# ('selector' is the AdaFocus+ head, not ported yet)
+# component -> parameter group, per stage ('ppo': PPO's Adam); a component
+# not listed is frozen ('selector' is the AdaFocus+ head, not ported yet)
 _STAGE_LABELS: Dict[int, Dict[str, str]] = {
     0: {"glancer": "backbone", "focuser": "backbone", "classifier": "fc",
         "policy": "frozen", "selector": "fc"},
     1: {"glancer": "frozen", "focuser": "backbone", "classifier": "fc",
         "policy": "frozen", "selector": "fc"},
+    2: {"glancer": "frozen", "focuser": "frozen", "classifier": "frozen",
+        "policy": "ppo", "selector": "frozen"},
     3: {"glancer": "frozen", "focuser": "frozen", "classifier": "fc",
         "policy": "frozen", "selector": "fc"},
 }
@@ -50,11 +54,24 @@ class OptimConfig:
 
 def stage_trainable(stage: int) -> Dict[str, str]:
     """The freeze matrix row of ``stage``: component -> 'backbone' | 'fc' |
-    'frozen'."""
+    'ppo' | 'frozen'."""
     if stage not in _STAGE_LABELS:
-        raise ValueError(f"stage {stage} has no supervised optimizer "
-                         "(stage 2 trains by PPO)")
+        raise ValueError(f"unknown stage {stage}")
     return _STAGE_LABELS[stage]
+
+
+def freeze_for_stage(model: nn.Module, stage: int) -> Dict[str, List[nn.Parameter]]:
+    """Sets ``requires_grad`` on every component of a GFV from the freeze
+    matrix row of ``stage``; returns the trained components' parameters by
+    label."""
+    labels = stage_trainable(stage)
+    groups: Dict[str, List[nn.Parameter]] = {}
+    for name, module in model.named_children():
+        label = labels.get(name, "frozen")
+        module.requires_grad_(label != "frozen")
+        if label != "frozen":
+            groups.setdefault(label, []).extend(module.parameters())
+    return groups
 
 
 def _lr_factor(cfg: OptimConfig) -> Callable[[int], float]:
@@ -84,19 +101,16 @@ def make_stage_optimizer(model: nn.Module, stage: int, cfg: OptimConfig,
     components get False and stay out of the optimizer). Call
     ``scheduler.step()`` after each ``optimizer.step()``.
     """
+    if stage == 2:
+        raise ValueError("stage 2 trains the policy by PPO's Adam, not by SGD: "
+                         "adafocus_torch.ppo.core.ppo_init")
     if cfg.tsn_policies or partial_bn:
         raise NotImplementedError(
             "tsn_policies and partial_bn (the sth-sth focuser groups) are not ported yet")
-    labels = stage_trainable(stage)
-    groups = {"backbone": [], "fc": []}
-    for name, module in model.named_children():
-        label = labels.get(name, "frozen")
-        module.requires_grad_(label != "frozen")
-        if label != "frozen":
-            groups[label] += list(module.parameters())
+    groups = freeze_for_stage(model, stage)
     base = {"backbone": cfg.backbone_lr, "fc": cfg.fc_lr}
     optimizer = torch.optim.SGD(
-        [{"params": params, "lr": base[label], "name": label}
-         for label, params in groups.items() if params],
+        [{"params": groups[label], "lr": base[label], "name": label}
+         for label in base if label in groups],
         momentum=cfg.momentum, weight_decay=cfg.weight_decay)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, _lr_factor(cfg))

@@ -4,13 +4,16 @@ adafocus_tpu/train/stages.py).
   stage 0  backbone pretraining: the GRU head's loss plus the glancer's CE
            on the downsampled frames and the focuser's CE on random patches;
   stage 1  random patches: glancer frozen, focuser and classifier train;
+  stage 2  PPO: everything frozen but the policy; the reward is the
+           classifier's confidence in the label at the sampled patches
+           against a one-step lookahead on random patches
+           (``make_stage2_step``);
   stage 3  the frozen greedy policy's patches: only the classifier trains.
 
-Stage 2 (PPO) is not ported yet. A frozen phase runs under
-``torch.no_grad()`` with its backbone in eval mode, so its running
-statistics stay as they are; its parameters are out of the optimizer
-(train/optim.py). Where the JAX step returns a new state, a step here
-updates the model and the optimizer in place, PyTorch's idiom.
+A frozen phase runs under ``torch.no_grad()`` with its backbone in eval
+mode, so its running statistics stay as they are; its parameters are out of
+the optimizer (train/optim.py). Where the JAX step returns a new state, a
+step here updates the model and the optimizer in place, PyTorch's idiom.
 """
 
 from __future__ import annotations
@@ -24,24 +27,38 @@ from torch.nn import functional as F
 from adafocus_torch.models.gfv import (
     GFV, GFVConfig, Device, extract_for_frames, fuse_and_classify, inference,
 )
+from adafocus_torch.models.policy import discrete_logprobs, discrete_to_coords, sample_rollout
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import random_patch_actions
-from adafocus_torch.train.optim import OptimConfig, make_stage_optimizer
+from adafocus_torch.ppo.core import (
+    PPOConfig, PPOState, compute_rewards, discounted_returns, ppo_init, ppo_update,
+)
+from adafocus_torch.train.optim import OptimConfig, freeze_for_stage, make_stage_optimizer
+
 
 @dataclasses.dataclass
 class TrainState:
+    """A supervised stage's model, SGD and schedule; stage 2's model and
+    PPO learner (``optimizer`` and ``scheduler`` None)."""
+
     model: GFV
-    optimizer: torch.optim.SGD
-    scheduler: torch.optim.lr_scheduler.LambdaLR
+    optimizer: Optional[torch.optim.SGD]
+    scheduler: Optional[torch.optim.lr_scheduler.LambdaLR]
+    ppo: Optional[PPOState] = None
 
 
 def create_train_state(cfg: GFVConfig, stage: int, optim: OptimConfig = OptimConfig(),
                        device: Device = None,
-                       generator: Optional[torch.Generator] = None) -> TrainState:
+                       generator: Optional[torch.Generator] = None,
+                       ppo: PPOConfig = PPOConfig()) -> TrainState:
     """A training GFV (float32 parameters, compute in ``cfg.dtype``; weights
     from ``generator``) on ``device`` (the GPU unless ``device="cpu"``), and
-    the optimizer and schedule of ``stage``."""
+    the optimizer and schedule of ``stage``; for stage 2, the PPO learner
+    of ``ppo`` over the policy, every other component frozen."""
     model = GFV(cfg, device=device, generator=generator, param_dtype=torch.float32)
+    if stage == 2:
+        freeze_for_stage(model, 2)
+        return TrainState(model, None, None, ppo_init(model.policy, ppo))
     return TrainState(model, *make_stage_optimizer(model, stage, optim))
 
 
@@ -70,7 +87,8 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
     logits.
     """
     if stage not in (0, 1, 3):
-        raise ValueError(f"stage {stage}: stages 0, 1 and 3 only (stage 2 is PPO)")
+        raise ValueError(f"stage {stage}: stages 0, 1 and 3 only "
+                         "(stage 2 is PPO: make_stage2_step)")
     if model.param_dtype not in (torch.float32, torch.float64):
         raise ValueError("a train step needs float32 parameters (create_train_state); "
                          f"this model's are {model.param_dtype}")
@@ -127,6 +145,125 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
         note("optimizer")
         top1, top5 = topk_accuracy(logits[:, -1].detach(), labels)
         return {"loss": loss.detach(), "top1": top1, "top5": top5}
+
+    return step
+
+
+def _target_confidence(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B, T, C) logits -> (B, T) softmax probability of the label, float32
+    (the reward signal)."""
+    probs = F.softmax(logits.float(), dim=-1)
+    b, t = probs.shape[:2]
+    return probs.gather(-1, labels.long().reshape(b, 1, 1).expand(b, t, 1))[..., 0]
+
+
+def _rollout_time_major(policy: torch.nn.Module, fmaps_tb: torch.Tensor,
+                        generator: Optional[torch.Generator], action_dim: int,
+                        idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The behavior rollout over time-major glance maps (T, B, gh, gw, C):
+    actions sampled from ``generator``, or the grid indices ``idx`` (T, B)
+    given. Returns coords (T, B, 2) float32, store (the indices), logprob
+    and value (T, B) float32. The caller holds ``no_grad``."""
+    _, actor_out, value = policy.rollout_states(fmaps_tb)
+    if idx is None:
+        coords, idx, logprob = sample_rollout(actor_out, "sample", action_dim, generator)
+    else:
+        idx = idx.to(actor_out.device)
+        coords = discrete_to_coords(idx, action_dim)
+        logprob = discrete_logprobs(actor_out).gather(-1, idx[..., None])[..., 0].float()
+    return {"coords": coords, "store": idx, "logprob": logprob, "value": value.float()}
+
+
+def stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator], cfg: PPOConfig,
+                   behavior_idx: Optional[torch.Tensor] = None,
+                   baseline_actions: Optional[torch.Tensor] = None,
+                   note: Callable[[str], None] = lambda phase: None) -> Dict[str, torch.Tensor]:
+    """The stage-2 episode, every phase frozen and under ``no_grad``: the
+    glance; the behavior policy's sampled rollout; extraction and focus at
+    its actions; the GRU classifier with its hiddens; the rewards
+    (``cfg.reward_mode``; for 'random' the baseline: extraction and focus at
+    uniform random actions, then one ``classifier_lookahead`` from each
+    step's previous hidden h_{t-1}); the normalised discounted returns.
+    Draws, in this order, the behavior sample and the baseline actions from
+    ``generator``; ``behavior_idx`` (T, B) and ``baseline_actions`` (B, T, 2)
+    replace them. Returns PPO's memory (fmaps, actions, old_logprob,
+    returns; time-major) and the rewards and confidences (B, T)."""
+    mc = model.cfg
+    frames, small, labels = batch["frames"], batch["frames_small"], batch["labels"]
+    b, t = small.shape[:2]
+    with torch.no_grad(), model.autocast():
+        fmap, pooled = model.glance(small, False)
+        fmaps_tb = fmap.transpose(0, 1).contiguous()
+        del fmap
+        note("glance")
+        roll = _rollout_time_major(model.policy, fmaps_tb, generator, mc.action_dim,
+                                   behavior_idx)
+        note("rollout")
+        patches = extract_for_frames(frames, roll["coords"].transpose(0, 1),
+                                     mc.image_size, mc.patch_size)
+        note("extract")
+        local = model.focus(patches, False).reshape(b, t, -1)
+        del patches
+        note("focus")
+        logits, hiddens = model.classify_seq_with_hiddens(
+            torch.cat([pooled, local], dim=-1).to(mc.dtype))
+        confidence = _target_confidence(logits, labels)
+        note("classify")
+        baseline = None
+        if cfg.reward_mode == "random":
+            if baseline_actions is None:
+                baseline_actions = random_patch_actions((b, t), generator, model.device)
+            patches = extract_for_frames(frames, baseline_actions, mc.image_size, mc.patch_size)
+            local = model.focus(patches, False).reshape(b, t, -1)
+            del patches
+            fused = torch.cat([pooled, local], dim=-1).to(mc.dtype)
+            h_prev = torch.cat([torch.zeros_like(hiddens[:, :1]), hiddens[:, :-1]], dim=1)
+            base_logits = model.classifier_lookahead(h_prev.reshape(b * t, -1),
+                                                     fused.reshape(b * t, -1))
+            baseline = _target_confidence(base_logits.reshape(b, t, -1), labels)
+            note("baseline")
+        rewards = compute_rewards(confidence, baseline, cfg.reward_mode)
+        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma)
+        note("returns")
+    return {"fmaps": fmaps_tb, "actions": roll["store"], "old_logprob": roll["logprob"],
+            "returns": returns, "rewards": rewards, "confidence": confidence}
+
+
+def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
+    """Stage 2, PPO on the patch policy. Returns ``step(batch, generator,
+    behavior_idx=None, baseline_actions=None, mark=None) -> metrics``.
+
+    batch: ``frames`` (B, T, S, S, 3), ``frames_small`` (B, T, g, g, 3) and
+    ``labels`` (B,), on the model's device; ``generator`` (on the model's
+    device) draws the behavior sample and the baseline actions, which
+    ``behavior_idx`` (T, B) and ``baseline_actions`` (B, T, 2) replace
+    (``stage2_episode``). Then ``ppo_update`` trains ``model.policy`` in
+    place (``ppo`` from ``create_train_state(cfg, 2)`` or ``ppo_init``).
+    ``mark(phase)``, when given, is called as each phase has been enqueued:
+    'glance', 'rollout', 'extract', 'focus', 'classify', 'baseline' (reward
+    'random'), 'returns', 'update'. The metrics are 0-d tensors on the
+    device: the PPO loss terms and mean ratio of the last epoch, and the
+    mean reward and confidence.
+    """
+    if model.param_dtype not in (torch.float32, torch.float64):
+        raise ValueError("a train step needs float32 parameters (create_train_state); "
+                         f"this model's are {model.param_dtype}")
+    if ppo.policy is not model.policy:
+        raise ValueError("the PPO learner must train this model's policy (ppo_init(model.policy))")
+
+    def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+             behavior_idx: Optional[torch.Tensor] = None,
+             baseline_actions: Optional[torch.Tensor] = None,
+             mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+        note = mark or (lambda phase: None)
+        episode = stage2_episode(model, batch, generator, ppo.cfg, behavior_idx,
+                                 baseline_actions, note)
+        metrics = ppo_update(ppo, episode, model.autocast)
+        note("update")
+        metrics["reward_mean"] = episode["rewards"].mean()
+        metrics["confidence"] = episode["confidence"].mean()
+        return metrics
 
     return step
 

@@ -16,14 +16,19 @@ The caller converts the flax trees to numpy first (``jax.tree.map(np.asarray,
 ...)``), so nothing here imports JAX. Every leaf is carried, the heads that
 inference does not use included; a leaf name the bridge does not know
 raises.
+
+``ppo_state_from_flax`` carries a stage-2 learner's Adam moments and counts
+the same way, so that a stage-2 run continues from a JAX state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from adafocus_torch.ppo.core import PPOState
 
 _RENAME = {"bi": "bias_ih", "bh": "bias_hh", "bias": "bias",
            "scale": "weight", "mean": "running_mean", "var": "running_var"}
@@ -70,3 +75,28 @@ def gfv_state_dict_from_flax(params: Mapping, batch_stats: Mapping,
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def ppo_state_from_flax(flax_ppo: Any, ppo: PPOState) -> None:
+    """A JAX ``PPOState`` (numpy leaves) -> the port's learner ``ppo``, in
+    place: the moments ``mu`` / ``nu`` and the count of its ``optax.adam``
+    state become each policy parameter's ``exp_avg`` / ``exp_avg_sq`` and
+    ``step`` in ``ppo.optimizer``, and its step count ``ppo.step``. The
+    policy's weights cross with ``gfv_state_dict_from_flax``."""
+    adam = flax_ppo.opt_state[0]
+    params = dict(ppo.policy.named_parameters())
+    moments = {}
+    for name, tree in (("exp_avg", adam.mu), ("exp_avg_sq", adam.nu)):
+        for path, value in _flatten(tree).items():
+            mods, value = _convert_leaf(path, value)
+            key = ".".join(mods)
+            if key not in params:
+                raise KeyError(f"Adam moment {'/'.join(path)} has no policy parameter")
+            moments.setdefault(key, {})[name] = torch.tensor(
+                value, dtype=params[key].dtype, device=params[key].device)
+    if moments.keys() != params.keys():
+        raise KeyError(f"no Adam moments for {sorted(params.keys() - moments.keys())}")
+    count = torch.tensor(float(adam.count), dtype=torch.float32)
+    for key, p in params.items():
+        ppo.optimizer.state[p] = {"step": count.clone(), **moments[key]}
+    ppo.step = int(flax_ppo.step)

@@ -41,8 +41,8 @@ Phases, each raising on failure:
      patch kernel, other kernels and device idle;
   6. training on the card (``adafocus_torch.train``): the patch kernel under
      autograd (forward and backward from actions and from offsets against
-     the plain version on the CPU, bit for bit); the stage-1 step, this
-     slice's main path, on the bf16 flagship at B=64 (float32 parameters,
+     the plain version on the CPU, bit for bit); the stage-1 step, slice
+     5's main path, on the bf16 flagship at B=64 (float32 parameters,
      bf16 compute), two warm-up and five timed steps with the launch counts
      set to 0 just before: videos/s, the split into glance, extraction,
      focus, classify, backward and optimizer by CUDA events, peak memory,
@@ -51,12 +51,27 @@ Phases, each raising on failure:
      in bf16, float32 (TF32 off) and float64 on the same weights, batch and
      actions at B=8 (losses, and each trained component's gradient cosine
      and norm ratio: float32 against float64, bf16 against float32); stages
-     0 and 3 and the eval step at B=2 with the same checks, untimed.
+     0 and 3 and the eval step at B=2 with the same checks, untimed;
+  7. the stage-2 (PPO) step, this slice's main path, on the bf16 flagship
+     at B=64 (reward 'random'), two warm-up and five timed steps with the
+     launch counts set to 0 just before: videos/s, the split into glance,
+     rollout, extraction, focus, classify, baseline, returns and update by
+     CUDA events, peak memory, exactly two patch launches a step (behavior
+     and baseline actions), finite metrics, every step's mean PPO ratio
+     within 1e-3 of 1, the glancer, focuser and classifier bit-identical
+     and every policy parameter moved; one step in bf16, float32 (TF32 off)
+     and float64 on the same weights, batch and injected behavior and
+     baseline actions at B=8 (the PPO loss, the rewards and the policy's
+     gradient: float32 against float64 held, bf16 against float32
+     printed); 10^6 draws of the sampler on the card, each anchor's
+     frequency within 5 sigma of its softmax probability. Three more
+     stage-2 steps run under ``torch.profiler`` (each phase's device
+     window, busy and idle time; the step's device idle share).
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
-instruction), the profile, the stage-1 timing and the kernel table as JSON
-lines, then as its last line
+instruction), the profile, the stage-1 and stage-2 timings and the kernel
+table as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -788,6 +803,44 @@ def check_patch_backward(device) -> None:
               "on the card bit-identical to the CPU's plain version", flush=True)
 
 
+def _timed_steps(step, batch, gen, device) -> dict:
+    """TRAIN_WARMUP + TRAIN_TIMED calls of a train ``step(batch, gen,
+    mark=)``, with every kernel's launch count and the peak memory reset just
+    before. A CUDA event is recorded at the start of each step and at each
+    ``mark``. Returns the metrics of every step (floats), the timed steps'
+    ms and videos/s, each phase's mean ms over them, the launch counts and
+    the peak memory."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _launch_counts(reset=True)
+    steps, metrics = [], []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(phase):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((phase, ev))
+
+        metrics.append(step(batch, gen, mark=mark))
+        if i >= TRAIN_WARMUP:
+            steps.append(marks)
+    torch.cuda.synchronize()
+    step_ms = [m[0][1].elapsed_time(m[-1][1]) for m in steps]
+    phase_ms = {}
+    for m in steps:
+        for (_, a), (name, b) in zip(m, m[1:]):
+            phase_ms[name] = phase_ms.get(name, 0.0) + a.elapsed_time(b) / len(steps)
+    b = batch["labels"].shape[0]
+    return {"metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+            "videos_per_s": [b / (ms / 1e3) for ms in step_ms], "step_ms": step_ms,
+            "phase_ms": phase_ms, "launches": _launch_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
 def train_stage1_timed(device, card: str) -> dict:
     """Phase 6, the main path: the stage-1 step on the bf16 flagship at
     B=64, TRAIN_WARMUP + TRAIN_TIMED steps with the launch counts set to 0
@@ -807,37 +860,14 @@ def train_stage1_timed(device, card: str) -> dict:
     batch = _train_batch(cfg, TRAIN_B, device, SEED + 7, torch.bfloat16)
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     before = _snapshot(model)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    _launch_counts(reset=True)
-    steps, losses = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
-        marks = [("start", torch.cuda.Event(enable_timing=True))]
-        marks[0][1].record()
-
-        def mark(phase):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((phase, ev))
-
-        metrics = step(batch, gen, mark=mark)
-        losses.append(metrics["loss"])
-        if i >= TRAIN_WARMUP:
-            steps.append(marks)
-    torch.cuda.synchronize()
-    launches = _launch_counts()
+    run = _timed_steps(step, batch, gen, device)
+    launches, peak, step_ms, phase_ms, vps = (run[k] for k in (
+        "launches", "peak_bytes", "step_ms", "phase_ms", "videos_per_s"))
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
     if launches["extract_patches"] != n_steps:
         raise AssertionError(f"stage 1: {launches['extract_patches']} patch launches in "
                              f"{n_steps} steps, want exactly one a step")
-    peak = torch.cuda.max_memory_allocated(device)
-    step_ms = [m[0][1].elapsed_time(m[-1][1]) for m in steps]
-    phase_ms = {}
-    for m in steps:
-        for (_, a), (name, b) in zip(m, m[1:]):
-            phase_ms[name] = phase_ms.get(name, 0.0) + a.elapsed_time(b) / len(steps)
-    vps = [TRAIN_B / (ms / 1e3) for ms in step_ms]
-    loss = [float(v) for v in losses]
+    loss = [m["loss"] for m in run["metrics"]]
     if not all(math.isfinite(v) for v in loss):
         raise AssertionError(f"stage 1 losses {loss}")
     check_train_update(before, model, 1, f"stage 1 B={TRAIN_B}")
@@ -974,6 +1004,196 @@ def train_small_stages(device) -> dict:
     return launches
 
 
+# phase 7, the stage-2 (PPO) step. Every step's mean PPO ratio is 1: the
+# behavior logprob and the evaluate pass compute the same log_softmax. One
+# step in three precisions on the same weights, batch and injected behavior
+# and baseline actions (TF32 off): float32 against float64 at phase 6's
+# float32 limits, for the same reason (the card has no JAX); bf16 against
+# float32 printed with no limit, since at random initialisation the reward
+# is a difference of two confidences near 1/200, below bf16's resolution of
+# the logits (phase 4's 3e-2)
+RATIO_TOL = 1e-3
+PPO_F32_LOSS_REL_TOL, PPO_F32_REWARD_REL_TOL, PPO_F32_GRAD_MIN_COS = 1e-4, 1e-3, 0.99
+SAMPLER_DRAWS, SAMPLER_SIGMAS = 10**6, 5
+
+
+STAGE2_PHASES = ("glance", "rollout", "extract", "focus", "classify", "baseline", "returns",
+                 "update")
+
+
+def profile_stage2(step, batch, gen, n_steps: int = 3) -> dict:
+    """``torch.profiler`` over ``n_steps`` stage-2 steps, each phase a
+    ``record_function`` range from the previous ``mark`` to its own: each
+    phase's device window, busy and idle time and host time, the steps'
+    idle share (``port_patch_times.split_phases``); the trace goes to
+    ``profiles/trace_stage2.json`` beside this script."""
+    from torch.profiler import record_function
+
+    from port_patch_times import PROFILES, _trace, split_phases
+
+    def run():
+        for _ in range(n_steps):
+            phases = iter(STAGE2_PHASES)
+            current = [next(phases), None]
+            current[1] = record_function(current[0])
+            current[1].__enter__()
+
+            def mark(phase):
+                if phase != current[0]:
+                    raise AssertionError(f"stage-2 phase {phase}, expected {current[0]}")
+                current[1].__exit__(None, None, None)
+                current[0] = next(phases, None)
+                if current[0] is not None:
+                    current[1] = record_function(current[0])
+                    current[1].__enter__()
+
+            step(batch, gen, mark=mark)
+
+    events = _trace(run, os.path.join(PROFILES, "trace_stage2.json"))
+    return split_phases(events, n_steps, STAGE2_PHASES)
+
+
+def train_stage2_timed(device, card: str) -> dict:
+    """Phase 7, this slice's main path: the stage-2 step on the bf16
+    flagship at B=64 (reward 'random'), TRAIN_WARMUP + TRAIN_TIMED steps
+    with the launch counts set to 0 just before: videos/s, each phase's ms,
+    peak memory; exactly two patch launches a step (the behavior actions and
+    the baseline's); every metric finite and every step's ratio_mean within
+    RATIO_TOL of 1; glancer, focuser and classifier (running statistics
+    included) bit-identical and every policy parameter moved."""
+    import torch
+
+    from adafocus_torch.models.gfv import flagship
+    from adafocus_torch.train.stages import create_train_state, make_stage2_step
+
+    cfg = flagship()
+    state = create_train_state(cfg, 2, device=device,
+                               generator=torch.Generator().manual_seed(SEED))
+    model = state.model
+    step = make_stage2_step(model, state.ppo)
+    batch = _train_batch(cfg, TRAIN_B, device, SEED + 12, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    before = _snapshot(model)
+    run = _timed_steps(step, batch, gen, device)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    if run["launches"]["extract_patches"] != 2 * n_steps:
+        raise AssertionError(f"stage 2: {run['launches']['extract_patches']} patch launches "
+                             f"in {n_steps} steps, want exactly two a step")
+    metrics = run["metrics"]
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"stage 2 metrics {metrics}")
+    ratios = [m["ppo/ratio_mean"] for m in metrics]
+    if not all(abs(r - 1.0) <= RATIO_TOL for r in ratios):
+        raise AssertionError(f"stage 2 ratio_mean {ratios}, want within {RATIO_TOL} of 1")
+    check_train_update(before, model, 2, f"stage 2 B={TRAIN_B}")
+    vps, step_ms, peak = run["videos_per_s"], run["step_ms"], run["peak_bytes"]
+    print(f"train stage 2 bf16 B={TRAIN_B} T={cfg.num_frames}: videos/s {vps!r} (mean "
+          f"{TRAIN_B * len(step_ms) / (sum(step_ms) / 1e3)!r}); step ms {step_ms!r}; phase ms "
+          f"{json.dumps(run['phase_ms'])}; peak memory {peak} B ({peak / 2**30:.2f} GiB); "
+          f"patch launches {run['launches']['extract_patches']} in {n_steps} steps; "
+          f"ratio_mean {ratios!r} (limit |r - 1| <= {RATIO_TOL}); losses "
+          f"{[m['ppo/loss'] for m in metrics]}; reward_mean "
+          f"{[m['reward_mean'] for m in metrics]} ({card})", flush=True)
+    run["profile"] = prof = profile_stage2(step, batch, gen)
+    print(f"train stage 2 B={TRAIN_B}, profiled (3 steps, ms a step): " + "; ".join(
+        f"{name} window {v['window_ms']!r}, busy {v['busy_ms']!r}, idle {v['idle_ms']!r}, "
+        f"host {v['host_ms']!r}" for name, v in prof.items() if name in STAGE2_PHASES)
+        + f"; device idle share {prof['total']['idle_share']!r} ({card})", flush=True)
+    del state, model, step, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_stage2_precisions(device) -> dict:
+    """Phase 7: one stage-2 step of the flagship at B=TRAIN_COMPARE_B in bf16
+    compute, float32 (TF32 off) and float64, over float32-initialised
+    parameters from the same seed, on the same batch and injected behavior
+    and baseline actions: the PPO loss, the rewards and the policy's
+    gradient, float32 against float64 (limits) and bf16 against float32
+    (printed)."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV, flagship
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.ppo.core import PPOConfig, ppo_init, ppo_update
+    from adafocus_torch.train.optim import freeze_for_stage
+    from adafocus_torch.train.stages import stage2_episode
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = flagship()
+    b, t = TRAIN_COMPARE_B, cfg16.num_frames
+    batch = _train_batch(cfg16, b, device, SEED + 14, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    behavior = torch.randint(0, cfg16.action_dim, (t, b), generator=gen, device=device)
+    baseline = random_patch_actions((b, t), gen, device)
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        model = GFV(dataclasses.replace(cfg16, dtype=dtype), device=device,
+                    generator=torch.Generator().manual_seed(SEED),
+                    param_dtype=torch.promote_types(dtype, torch.float32))
+        freeze_for_stage(model, 2)
+        ppo = ppo_init(model.policy, PPOConfig())
+        episode = stage2_episode(model, batch, None, ppo.cfg, behavior, baseline)
+        metrics = ppo_update(ppo, episode, model.autocast)
+        grad = torch.cat([p.grad.flatten().double() for p in model.policy.parameters()])
+        runs[str(dtype).removeprefix("torch.")] = (
+            float(metrics["ppo/loss"]), episode["rewards"].double().flatten(), grad,
+            float(metrics["ppo/ratio_mean"]))
+        del model, ppo, episode
+        torch.cuda.empty_cache()
+
+    def compare(name, ref):
+        (loss, r, g, ratio), (loss_ref, r_ref, g_ref, _) = runs[name], runs[ref]
+        out = {"loss": loss, "loss_ref": loss_ref, "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+               "reward_rel": float((r - r_ref).abs().max() / r_ref.abs().max()),
+               "reward_corr": float(torch.corrcoef(torch.stack([r, r_ref]))[0, 1]),
+               "grad_cos": float(torch.nn.functional.cosine_similarity(g, g_ref, dim=0)),
+               "grad_norm_ratio": float(g.norm() / g_ref.norm()), "ratio_mean": ratio}
+        print(f"train stage 2 B={b}, {name} vs {ref} (TF32 off), one step on the same weights, "
+              f"batch, behavior and baseline actions: {json.dumps(out)}", flush=True)
+        if not (math.isfinite(loss) and torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: loss {loss}, gradient finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+        return out
+
+    f32 = compare("float32", "float64")
+    bf16 = compare("bfloat16", "float32")
+    checks = [("float32 ppo loss", f32["loss_rel"] <= PPO_F32_LOSS_REL_TOL),
+              ("float32 rewards", f32["reward_rel"] <= PPO_F32_REWARD_REL_TOL),
+              ("float32 policy gradient cosine", f32["grad_cos"] >= PPO_F32_GRAD_MIN_COS)]
+    failed = [name for name, ok in checks if not ok]
+    print(f"stage-2 precision limits, float32 vs float64: ppo loss <= {PPO_F32_LOSS_REL_TOL} "
+          f"relative, rewards max|d|/max|float64| <= {PPO_F32_REWARD_REL_TOL}, policy gradient "
+          f"cosine >= {PPO_F32_GRAD_MIN_COS}; bf16 vs float32 printed, no limit; failed: "
+          f"{failed}", flush=True)
+    if failed:
+        raise AssertionError(f"stage-2 precision checks failed: {failed}")
+    return {"float32_vs_float64": f32, "bf16_vs_float32": bf16}
+
+
+def check_sampler(device) -> dict:
+    """Phase 7: SAMPLER_DRAWS draws of ``sample_discrete`` over the 49
+    anchors from one row of fixed logits on a CUDA generator; every class's
+    frequency within SAMPLER_SIGMAS binomial sigmas of its softmax
+    probability."""
+    import torch
+
+    from adafocus_torch.models.policy import sample_discrete
+
+    logits = torch.randn(49, generator=torch.Generator().manual_seed(SEED + 16)).to(device) * 2
+    draws, _ = sample_discrete(logits.expand(SAMPLER_DRAWS, 49),
+                               torch.Generator(device=device).manual_seed(SEED + 17))
+    freq = torch.bincount(draws, minlength=49).double() / SAMPLER_DRAWS
+    p = torch.softmax(logits.double(), -1)
+    z = float(((freq - p).abs() / (p * (1 - p) / SAMPLER_DRAWS).sqrt()).max())
+    print(f"sampler: {SAMPLER_DRAWS} draws over 49 anchors on the card, largest deviation "
+          f"{z!r} sigma (limit {SAMPLER_SIGMAS})", flush=True)
+    if not z <= SAMPLER_SIGMAS:
+        raise AssertionError(f"sampler frequencies off by {z} sigma")
+    return {"draws": SAMPLER_DRAWS, "max_sigma": z}
+
+
 def main() -> int:
     import torch
 
@@ -1043,7 +1263,7 @@ def main() -> int:
     print(f"extraction phase, profiled, bf16 B=64 T=16 cuDNN path: window "
           f"{ext['window_ms']!r} ms = patch kernel {ext['patch_kernel_ms']!r} + other kernels "
           f"{ext['other_kernels_ms']!r} + device idle {ext['idle_ms']!r}; host "
-          f"{ext['host_ms']!r} ms; forward idle share {prof['forward']['idle_share']!r} "
+          f"{ext['host_ms']!r} ms; forward idle share {prof['total']['idle_share']!r} "
           f"({card})", flush=True)
     if not ext["patch_kernel_ms"] > 0:
         raise AssertionError(f"the profile shows no patch kernel in the extraction phase: {prof}")
@@ -1055,19 +1275,26 @@ def main() -> int:
     train["precision"] = train_precisions(device)
     train_launches = train_small_stages(device)
     done("phase 6")
+    stage2 = train_stage2_timed(device, card)
+    stage2["precision"] = train_stage2_precisions(device)
+    stage2["sampler"] = check_sampler(device)
+    done("phase 7")
     # the patch kernel's count from the run of this slice's main path, the
-    # stage-1 step; the counts of the other paths beside it
-    rows[0]["launches"] = train["launches"]["extract_patches"]
+    # stage-2 step; the counts of the other paths beside it
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    rows[0]["launches"] = stage2["launches"]["extract_patches"]
     rows[0]["launches_by_path"] = {
         "inference, cuDNN path, 1 forward": launches["auto"]["extract_patches"],
         "inference, fused path, 1 forward": launches["on"]["extract_patches"],
-        f"train stage 1, {TRAIN_WARMUP + TRAIN_TIMED} steps": train["launches"]["extract_patches"],
+        f"train stage 1, {n_steps} steps": train["launches"]["extract_patches"],
         **{f"{k}, {1 if k == 'eval' else 2} step(s)": v["extract_patches"]
-           for k, v in train_launches.items()}}
+           for k, v in train_launches.items()},
+        f"train stage 2, {n_steps} steps": stage2["launches"]["extract_patches"]}
     print(json.dumps({"extraction_profile": prof}), flush=True)
     print(json.dumps({"patch_shapes": patch_shapes}), flush=True)
     print(json.dumps({"fused_shapes": per_shape}), flush=True)
     print(json.dumps({"train_stage1": train}), flush=True)
+    print(json.dumps({"train_stage2": stage2}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

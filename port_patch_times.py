@@ -201,15 +201,16 @@ def profile_phases(model, frames, small, n_forwards: int = 3,
     return split_phases(events, n_forwards)
 
 
-def split_phases(events: list, n_forwards: int) -> dict:
-    """Device busy and idle time of each annotated phase (see
-    ``profile_phases``)."""
+def split_phases(events: list, n_runs: int, phases: tuple = PHASES) -> dict:
+    """Device busy and idle time of each phase of ``phases`` annotated in
+    the trace, means over ``n_runs`` runs (see ``profile_phases``); the
+    whole run's window, idle time and idle share under ``"total"``."""
     launch_ts = {}
     for e in events:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
             launch_ts[e["args"]["correlation"]] = e["ts"]
     ranges = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                     if e.get("cat") == "user_annotation" and e.get("name") in PHASES))
+                     if e.get("cat") == "user_annotation" and e.get("name") in phases))
 
     def phase_of(host_ts):
         for i, (a0, a1, _) in enumerate(ranges):
@@ -226,32 +227,32 @@ def split_phases(events: list, n_forwards: int) -> dict:
         prev = phase_of(ts) if ts is not None else prev
         owner.append(prev)
     out = {name: {"window_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0, "host_ms": 0.0}
-           for name in PHASES}
+           for name in phases}
     out["extract"].update(patch_kernel_ms=0.0, other_kernels_ms=0.0, other_kernels=[])
     last_end = None
     for i, (a0, a1, name) in enumerate(ranges):
         mine = [e for e, o in zip(dev, owner) if o == i]
-        out[name]["host_ms"] += (a1 - a0) / 1e3 / n_forwards
+        out[name]["host_ms"] += (a1 - a0) / 1e3 / n_runs
         if not mine:
             continue
         end = max(e["ts"] + e["dur"] for e in mine)
         start = last_end if last_end is not None else mine[0]["ts"]
         busy = sum(e["dur"] for e in mine)
-        out[name]["window_ms"] += (end - start) / 1e3 / n_forwards
-        out[name]["busy_ms"] += busy / 1e3 / n_forwards
-        out[name]["idle_ms"] += (end - start - busy) / 1e3 / n_forwards
+        out[name]["window_ms"] += (end - start) / 1e3 / n_runs
+        out[name]["busy_ms"] += busy / 1e3 / n_runs
+        out[name]["idle_ms"] += (end - start - busy) / 1e3 / n_runs
         if name == "extract":
             for e in mine:
                 key = "patch_kernel_ms" if "patch" in e["name"] else "other_kernels_ms"
-                out[name][key] += e["dur"] / 1e3 / n_forwards
+                out[name][key] += e["dur"] / 1e3 / n_runs
                 if key == "other_kernels_ms" and e["name"] not in out[name]["other_kernels"]:
                     out[name]["other_kernels"].append(e["name"])
         last_end = end
     window = sum(v["window_ms"] for v in out.values())
     idle = sum(v["idle_ms"] for v in out.values())
-    out["forward"] = {"window_ms": window, "idle_ms": idle,
-                      "idle_share": idle / window if window else None,
-                      "device_events": len(dev), "forwards": n_forwards}
+    out["total"] = {"window_ms": window, "idle_ms": idle,
+                    "idle_share": idle / window if window else None,
+                    "device_events": len(dev), "runs": n_runs}
     return out
 
 

@@ -14,7 +14,10 @@ actions.
 Under autograd the patch kernel still launches once a forward, and the
 backward (a scatter in plain PyTorch) on the card equals the CPU's bit for
 bit. One stage-1 train step at the tiny configuration on the card leaves
-the frozen glancer and policy bit-identical.
+the frozen glancer and policy bit-identical; one stage-2 (PPO) step launches
+the patch kernel twice, leaves everything but the policy bit-identical and
+moves every policy parameter. The policy's sampler draws each class from a
+CUDA generator at its softmax frequency, within 5 sigma.
 
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
@@ -32,6 +35,7 @@ import torch
 
 from adafocus_torch.models import gfv as tgfv
 from adafocus_torch.models import mobilenet as tmob
+from adafocus_torch.models import policy as tpolicy
 from adafocus_torch.models import resnet as tres
 from adafocus_torch.ops import fused_blocks as tfb
 from adafocus_torch.ops import patch as tpatch
@@ -181,6 +185,46 @@ def test_cuda_stage1_step_keeps_frozen_components():
     assert not torch.equal(before["focuser.stem.conv.weight"], after["focuser.stem.conv.weight"])
     assert not torch.equal(before["focuser.stem.bn.running_var"],
                            after["focuser.stem.bn.running_var"])
+
+
+@pytest.mark.cuda
+def test_cuda_stage2_step_trains_only_the_policy():
+    _needs_gpu()
+    cfg = tgfv.flagship(tiny=True)
+    state = tstages.create_train_state(cfg, 2, device="cuda",
+                                       generator=torch.Generator().manual_seed(0))
+    model = state.model
+    step = tstages.make_stage2_step(model, state.ppo)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, t, s, g = 2, cfg.num_frames, cfg.image_size, cfg.glance_size
+    batch = {"frames": torch.randn((b, t, s, s, 3), generator=gen, device="cuda"),
+             "frames_small": torch.randn((b, t, g, g, 3), generator=gen, device="cuda"),
+             "labels": torch.tensor([1, 4], device="cuda")}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    launches = tpatch.extract_patches.launches
+    metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    assert tpatch.extract_patches.launches == launches + 2
+    assert all(torch.isfinite(v) for v in metrics.values())
+    assert abs(float(metrics["ppo/ratio_mean"]) - 1.0) <= 1e-6
+    after = model.state_dict()
+    for key, value in before.items():
+        moved = not torch.equal(value, after[key])
+        assert moved == key.startswith("policy."), key
+
+
+@pytest.mark.cuda
+def test_cuda_sampler_frequencies():
+    # 10^6 draws over K=49 from one row of logits on a CUDA generator
+    _needs_gpu()
+    n = 1_000_000
+    row = torch.randn(49, generator=torch.Generator().manual_seed(3)).cuda() * 2
+    draws, logp = tpolicy.sample_discrete(row.expand(n, 49),
+                                          torch.Generator(device="cuda").manual_seed(4))
+    torch.testing.assert_close(logp, torch.log_softmax(row, -1)[draws], rtol=0, atol=1e-6)
+    freq = torch.bincount(draws, minlength=49).double() / n
+    p = torch.softmax(row.double(), -1)
+    assert ((freq - p).abs() <= 5 * (p * (1 - p) / n).sqrt()).all()
 
 
 @pytest.mark.cuda

@@ -102,7 +102,7 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    banned = {"jax", "jaxlib", "flax", "adafocus_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "adafocus_tpu"}
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -30,7 +30,6 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 
@@ -42,61 +41,19 @@ from adafocus_torch.train import optim as toptim
 from adafocus_torch.train import stages as tstages
 from adafocus_torch.weights import gfv_state_dict_from_flax
 from adafocus_tpu.models import layers as jlayers
-from adafocus_tpu.models.gfv import GFV, forward_random
+from adafocus_tpu.models.gfv import forward_random
 from adafocus_tpu.ops import metrics as jmetrics
-from adafocus_tpu.ops.patch import extract_patches, pad_for_extraction, patch_offsets
+from adafocus_tpu.ops.patch import extract_patches, patch_offsets
 from adafocus_tpu.ops.patch import random_patch_actions
 from adafocus_tpu.train import optim as joptim
 from adafocus_tpu.train.stages import TrainState, make_eval_step, make_stage_train_step
-from tests.torch_port_common import TINY, jax_variables, port_config, port_model
+from tests.torch_port_common import (
+    TRAIN_B, float64_train_setup, port_model64, snapshot, state_dict_from_jax,
+)
 
 OPT = dict(epochs=2, steps_per_epoch=4)
 STEPS = 3
 SEED = 1
-# the train steps' configuration: TINY's widths at 48^2 frames, 32^2 glance
-# and 32^2 patches, batch 4, so that train-mode BatchNorm normalises over 8
-# values a channel at the backbones' last (1x1) maps, where TINY has 4. In
-# float32 the two packages' gradients of this random network differ far
-# beyond float32 rounding on some focuser tensors after one step (rounding
-# amplified through the train-mode BatchNorm backward), while in float64
-# they agree within the tolerances below, so the steps are compared in
-# float64.
-TRAIN_CFG = dataclasses.replace(TINY, image_size=48, glance_size=32, patch_size=32)
-TRAIN_B = 4
-
-
-def _batch(cfg, b, seed, dtype=np.float32):
-    """The same inputs as a JAX batch and as the port's."""
-    rs = np.random.RandomState(seed)
-    t, s, g = cfg.num_frames, cfg.image_size, cfg.glance_size
-    frames = rs.randn(b, t, s, s, 3).astype(dtype)
-    small = rs.randn(b, t, g, g, 3).astype(dtype)
-    labels = rs.randint(0, cfg.num_classes, b).astype(np.int32)
-    flat = pad_for_extraction(jnp.asarray(frames.reshape(b * t, s, s, 3)))
-    jbatch = {"frames_flat": flat.reshape((b, t) + flat.shape[1:]),
-              "frames_small": jnp.asarray(small), "labels": jnp.asarray(labels)}
-    tbatch = {"frames": torch.from_numpy(frames), "frames_small": torch.from_numpy(small),
-              "labels": torch.from_numpy(labels).long()}
-    return jbatch, tbatch
-
-
-def _state_dict(variables, dtype=torch.float32):
-    return gfv_state_dict_from_flax(jax.tree.map(np.asarray, variables["params"]),
-                                    jax.tree.map(np.asarray, variables["batch_stats"]), dtype)
-
-
-def _snapshot(model):
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-
-def _assert_greedy_margin(jmodel, variables, small):
-    # every step's top-2 actor-logit margin exceeds 1e-3, so that the greedy
-    # argmax cannot flip on rounding (as tests/test_torch_port_gfv.py does)
-    fmap, _ = jmodel.apply(variables, small, method=GFV.glance)
-    _, logits, _ = jmodel.apply(variables, jnp.swapaxes(fmap, 0, 1),
-                                method=lambda m, x: m.policy.rollout_states(x))
-    top2 = np.sort(np.asarray(logits), axis=-1)[..., -2:]
-    assert (top2[..., 1] - top2[..., 0]).min() > 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -264,11 +221,7 @@ def one_torch_thread():
 def train_setup():
     """The float64 JAX GFV at TRAIN_CFG, its (randomised) variables and the
     batch, shared by the three stages."""
-    with jax.enable_x64(True):
-        cfg = dataclasses.replace(TRAIN_CFG, dtype=jnp.float64)
-        jmodel, variables = jax_variables(cfg, seed=SEED)
-        variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
-        return (cfg, jmodel, variables) + _batch(cfg, TRAIN_B, SEED + 1, np.float64)
+    return float64_train_setup(SEED)
 
 
 @pytest.fixture(scope="module", params=[0, 1, 3], ids=["stage0", "stage1", "stage3"])
@@ -291,14 +244,12 @@ def trained(request, train_setup):
             with fnn.intercept_methods(_dropout_interceptor(keep)):
                 return jstep(state, batch, rng)
 
-        model = tgfv.GFV(dataclasses.replace(port_config(cfg), dtype=torch.float64),
-                         device="cpu")
-        model.load_state_dict(_state_dict(variables, torch.float64))
+        model = port_model64(cfg, variables)
         opt, sched = toptim.make_stage_optimizer(model, stage, toptim.OptimConfig(**OPT))
         step = tstages.make_stage_train_step(model, stage, opt, sched)
 
         rs = np.random.RandomState(SEED + 2)
-        jax_sd, port_sd = [_state_dict(variables, torch.float64)], [_snapshot(model)]
+        jax_sd, port_sd = [state_dict_from_jax(variables, torch.float64)], [snapshot(model)]
         jax_m, port_m = [], []
         for k in range(STEPS):
             rng = jax.random.key(100 + k)
@@ -306,13 +257,14 @@ def trained(request, train_setup):
             actions = np.array(random_patch_actions(a_key, (b, t)))
             keep = rs.uniform(0, 1, (b * t, cfg.glance_dim)) < 0.8
             state, m = jax_step(state, jbatch, rng, jnp.asarray(keep))
-            jax_sd.append(_state_dict({"params": state.params,
-                                       "batch_stats": state.batch_stats}, torch.float64))
+            jax_sd.append(state_dict_from_jax({"params": state.params,
+                                               "batch_stats": state.batch_stats},
+                                              torch.float64))
             jax_m.append({k: float(v) for k, v in m.items()})
             # stage 3 takes the port's own greedy actions
             got = step(tbatch, torch.Generator(),
                        None if stage == 3 else torch.from_numpy(actions), torch.from_numpy(keep))
-            port_sd.append(_snapshot(model))
+            port_sd.append(snapshot(model))
             port_m.append({k: float(v) for k, v in got.items()})
     return stage, jax_sd, port_sd, jax_m, port_m
 
@@ -366,12 +318,6 @@ def test_stage_step_matches_jax(trained, n_steps):
     assert {key.split(".")[0] for key in moved} == set(_COMPONENTS) - set(_FROZEN[stage])
 
 
-def _port_model64(cfg, variables):
-    model = tgfv.GFV(dataclasses.replace(port_config(cfg), dtype=torch.float64), device="cpu")
-    model.load_state_dict(_state_dict(variables, torch.float64))
-    return model
-
-
 def test_forward_random_matches_jax(train_setup):
     # float64, both backbones in train mode: logits and every running
     # statistic within 1e-9 relative
@@ -384,9 +330,9 @@ def test_forward_random_matches_jax(train_setup):
             variables, jbatch["frames_flat"], jbatch["frames_small"], rng)
         a_key, _ = jax.random.split(rng)
         actions = np.array(random_patch_actions(a_key, (b, t)))
-        want_sd = _state_dict({"params": variables["params"],
+        want_sd = state_dict_from_jax({"params": variables["params"],
                                "batch_stats": upd["batch_stats"]}, torch.float64)
-    model = _port_model64(cfg, variables)
+    model = port_model64(cfg, variables)
     got = tgfv.forward_random(model, tbatch["frames"], tbatch["frames_small"],
                               torch.Generator(), actions=torch.from_numpy(actions))
     assert _rel(got.detach(), torch.from_numpy(np.asarray(want))) <= 1e-9
@@ -405,7 +351,7 @@ def test_eval_step_matches_jax(train_setup):
         jstate = TrainState(params=variables["params"], batch_stats=variables["batch_stats"],
                             opt_state=None, step=jnp.zeros((), jnp.int32))
         want, want_m = jax.jit(make_eval_step(jmodel))(jstate, jbatch, jax.random.key(0))
-    model = _port_model64(cfg, variables)
+    model = port_model64(cfg, variables)
     got, got_m = tstages.make_eval_step(model)(tbatch)
     assert _rel(got, torch.from_numpy(np.asarray(want))) <= 1e-9
     assert {k: float(v) for k, v in got_m.items()} == {k: float(v) for k, v in want_m.items()}

@@ -18,6 +18,7 @@ from flax.core import unfreeze
 from adafocus_torch.models import gfv as tgfv
 from adafocus_torch.weights import gfv_state_dict_from_flax
 from adafocus_tpu.models.gfv import GFV, GFVConfig
+from adafocus_tpu.ops.patch import pad_for_extraction
 from adafocus_tpu.train.stages import create_train_state
 
 # JAX GFVConfig of the tiny model of __graft_entry__._flagship
@@ -34,6 +35,16 @@ FLAGSHIP_WIDTH = GFVConfig(
     patch_size=32, action_dim=49, hidden_dim=1024, policy_hidden=1024,
     dtype=jnp.float32,
 )
+
+# the train steps' configuration: TINY's widths at 48^2 frames, 32^2 glance
+# and 32^2 patches, batch 4, so that train-mode BatchNorm normalises over 8
+# values a channel at the backbones' last (1x1) maps, where TINY has 4. In
+# float32 the two packages' gradients of this random network differ far
+# beyond float32 rounding on some focuser tensors after one step (rounding
+# amplified through the train-mode BatchNorm backward), while in float64
+# they agree, so the train steps are compared in float64.
+TRAIN_CFG = dataclasses.replace(TINY, image_size=48, glance_size=32, patch_size=32)
+TRAIN_B = 4
 
 
 def _map_tree(fn, tree, path=()):
@@ -81,4 +92,47 @@ def port_model(cfg: GFVConfig, variables) -> tgfv.GFV:
     model = tgfv.GFV(port_config(cfg), device="cpu")
     model.load_state_dict(gfv_state_dict_from_flax(
         variables["params"], variables["batch_stats"]))
+    return model
+
+
+def train_batch(cfg: GFVConfig, b: int, seed: int, dtype=np.float32):
+    """The same random inputs as a JAX batch (frames padded for its
+    extraction) and as the port's."""
+    rs = np.random.RandomState(seed)
+    t, s, g = cfg.num_frames, cfg.image_size, cfg.glance_size
+    frames = rs.randn(b, t, s, s, 3).astype(dtype)
+    small = rs.randn(b, t, g, g, 3).astype(dtype)
+    labels = rs.randint(0, cfg.num_classes, b).astype(np.int32)
+    flat = pad_for_extraction(jnp.asarray(frames.reshape(b * t, s, s, 3)))
+    jbatch = {"frames_flat": flat.reshape((b, t) + flat.shape[1:]),
+              "frames_small": jnp.asarray(small), "labels": jnp.asarray(labels)}
+    tbatch = {"frames": torch.from_numpy(frames), "frames_small": torch.from_numpy(small),
+              "labels": torch.from_numpy(labels).long()}
+    return jbatch, tbatch
+
+
+def state_dict_from_jax(variables, dtype=torch.float32):
+    """The port's state dict of flax {'params', 'batch_stats'} (any leaves)."""
+    return gfv_state_dict_from_flax(jax.tree.map(np.asarray, variables["params"]),
+                                    jax.tree.map(np.asarray, variables["batch_stats"]), dtype)
+
+
+def snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def float64_train_setup(seed: int):
+    """The float64 JAX GFV at TRAIN_CFG, its randomised variables as float64
+    numpy trees and a float64 batch of TRAIN_B (JAX's and the port's)."""
+    with jax.enable_x64(True):
+        cfg = dataclasses.replace(TRAIN_CFG, dtype=jnp.float64)
+        jmodel, variables = jax_variables(cfg, seed=seed)
+        variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        return (cfg, jmodel, variables) + train_batch(cfg, TRAIN_B, seed + 1, np.float64)
+
+
+def port_model64(cfg: GFVConfig, variables) -> tgfv.GFV:
+    """The port's float64 GFV on the CPU with the bridged ``variables``."""
+    model = tgfv.GFV(dataclasses.replace(port_config(cfg), dtype=torch.float64), device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables, torch.float64))
     return model
