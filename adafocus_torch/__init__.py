@@ -12,9 +12,12 @@ Covered so far: the deployment forward of the ActivityNet family
 and the GRU classifier; and its four-stage training (``train.stages``:
 the supervised stages 0, 1 and 3, the stage-2 PPO step on the sampled
 policy with the random-patch lookahead baseline (``ppo.core``), and the
-eval step; ``train.optim``). ``weights.gfv_state_dict_from_flax`` carries
-the weights of a trained flax GFV over, ``weights.ppo_state_from_flax`` a
-stage-2 learner's Adam state.
+eval step; ``train.optim``). The deployment forward of the sth-sth family
+(``models.gfv_sthsth.inference_sthsth``: temporal-shift backbones, one
+continuous action per video division, sum consensus), not yet its
+training. ``benchmark`` times the forwards (``port_bench.py``).
+``weights.gfv_state_dict_from_flax`` carries the weights of a trained flax
+GFV over, ``weights.ppo_state_from_flax`` a stage-2 learner's Adam state.
 
 Every entry point runs on the GPU unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request it raises

@@ -1,10 +1,14 @@
-"""Recurrent classifier over fused glance + focus features (counterpart of
-``RecurrentClassifier`` in adafocus_tpu/models/classifiers.py).
+"""Classifier heads (counterpart of adafocus_tpu/models/classifiers.py).
 
-GRU(input = 1280 + 2048 = 3328, hidden = 1024) and a per-step FC. The
-hidden state is an explicit carry; ``step`` is one MDP step and
+``RecurrentClassifier``, the ActivityNet head: GRU(input = 1280 + 2048 =
+3328, hidden = 1024) over fused glance + focus features and a per-step FC.
+The hidden state is an explicit carry; ``step`` is one MDP step and
 ``lookahead`` one step whose hidden is not carried (the stage-2 random-patch
 baseline).
+
+``ConsensusHead`` and ``avg_consensus``, the sth-sth head: dropout and a
+per-frame FC over focuser features, averaged over time by the caller.
+``LinearClassifier`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from adafocus_torch.models.gru import GRUCell
 
@@ -44,3 +49,22 @@ class RecurrentClassifier(nn.Module):
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         """features (B, T, D) -> per-step logits (B, T, classes)."""
         return self.forward_with_hiddens(features)[0]
+
+
+class ConsensusHead(nn.Module):
+    """The sth-sth local head: dropout, then a per-frame FC over focuser
+    features (..., D) -> (..., classes)."""
+
+    def __init__(self, in_dim: int, num_classes: int, dropout_rate: float = 0.5):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.fc = nn.Linear(in_dim, num_classes)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """The dropout is the identity in eval mode."""
+        return self.fc(F.dropout(features, self.dropout_rate, self.training))
+
+
+def avg_consensus(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Average consensus over the time axis."""
+    return logits.mean(dim=dim)

@@ -14,6 +14,12 @@ training steps (train/stages.py) compose the same phases: stages 0, 1 and 3
 with ``train=True`` and ``forward_random``; stage 2 (PPO) with the sampled
 rollout, ``classify_seq_with_hiddens`` and ``classifier_lookahead``.
 
+The sth-sth family (``classifier="consensus"``, models/gfv_sthsth.py)
+composes the same phases differently: temporal-shift backbones, 8 glance
+and 12 focus frames, one continuous action per video division
+(``policy_rollout_div``) and a per-frame head (``classify_frame_logits``)
+under sum consensus.
+
 The public functions keep the JAX package's layouts: frames are
 channels-last (B, T, S, S, 3), feature maps (B, T, gh, gw, C). Inside, the
 backbones take NCHW views of channels-last memory, which is free.
@@ -37,7 +43,7 @@ import torch
 from torch import nn
 
 from adafocus_torch import default_device
-from adafocus_torch.models.classifiers import RecurrentClassifier
+from adafocus_torch.models.classifiers import ConsensusHead, RecurrentClassifier
 from adafocus_torch.models.fused_inference import fused_enabled, fused_focus, fused_glance
 from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.models.mobilenet import MobileNetV2
@@ -51,11 +57,12 @@ Device = Optional[Union[str, torch.device]]
 @dataclasses.dataclass(frozen=True)
 class GFVConfig:
     """Static model configuration, the fields of the JAX ``GFVConfig`` that
-    the ActivityNet deployment forward reads. Fields of the other families
-    exist so that setting them fails loudly until they are ported."""
+    the ActivityNet and sth-sth deployment forwards read. Fields of the
+    families not ported yet exist so that setting them fails loudly."""
 
     num_classes: int = 200
-    num_frames: int = 16
+    num_frames: int = 16          # T, the glancer's frames
+    num_frames_focuser: int = 0   # sth-sth dual rate; 0 = num_frames
     image_size: int = 224
     glance_size: int = 224
     patch_size: int = 96
@@ -64,23 +71,22 @@ class GFVConfig:
     policy_hidden: int = 1024
     policy_channels: int = 32     # state-encoder 1x1-conv width
     dtype: torch.dtype = torch.bfloat16  # compute and parameter dtype
-    # not ported yet: each must keep its default
-    classifier: str = "gru"
+    classifier: str = "gru"       # 'gru' (ActivityNet) | 'consensus' (sth-sth)
     continuous_policy: bool = False
+    action_std: float = 0.25      # the continuous policy's Gaussian std (training)
+    policy_bn: bool = False       # BatchNorm after the encoder's 1x1 conv
+    tsm: bool = False             # temporal-shift backbones
+    video_div: int = 1            # sth-sth: one action per division
+    with_glancer: bool = True     # sth-sth: add the glancer logits' consensus
+    dropout: float = 0.5          # sth-sth local head's dropout
+    # not ported yet: each must keep its default
     policy_conv: bool = True
-    policy_bn: bool = False
-    tsm: bool = False
-    video_div: int = 1
     frame_budget: int = 0
 
     def __post_init__(self):
         unported = {
-            "classifier": self.classifier != "gru",
-            "continuous_policy": self.continuous_policy,
+            "classifier": self.classifier not in ("gru", "consensus"),
             "policy_conv": not self.policy_conv,
-            "policy_bn": self.policy_bn,
-            "tsm": self.tsm,
-            "video_div": self.video_div > 1,
             "frame_budget": self.frame_budget > 0,
         }
         for name, is_set in unported.items():
@@ -88,6 +94,23 @@ class GFVConfig:
                 raise NotImplementedError(
                     f"GFVConfig.{name}={getattr(self, name)!r} is not ported yet"
                 )
+
+    @property
+    def t_focuser(self) -> int:
+        return self.num_frames_focuser or self.num_frames
+
+    @property
+    def sthsth(self) -> bool:
+        """The sth-sth family: the consensus head over the division rollout."""
+        return self.classifier == "consensus"
+
+    @property
+    def serving_only(self) -> bool:
+        """Whether the configuration uses a part whose training is not ported
+        yet (TSM, the consensus head, the continuous policy, the BatchNorm
+        encoder, video divisions, dual-rate frames)."""
+        return (self.sthsth or self.tsm or self.continuous_policy or self.policy_bn
+                or self.video_div > 1 or self.t_focuser != self.num_frames)
 
     @property
     def glance_dim(self) -> int:
@@ -153,16 +176,24 @@ class GFV(nn.Module):
         dev = default_device(device)
         self.cfg = cfg
         self.param_dtype = cfg.dtype if param_dtype is None else param_dtype
-        self.glancer = MobileNetV2(num_classes=cfg.num_classes)
-        self.focuser = resnet50(num_classes=cfg.num_classes)
+        self.glancer = MobileNetV2(num_classes=cfg.num_classes,
+                                   n_frames=cfg.num_frames if cfg.tsm else 0)
+        self.focuser = resnet50(num_classes=cfg.num_classes,
+                                n_frames=cfg.t_focuser if cfg.tsm else 0)
         g = cfg.glance_map_size
+        # the sth-sth policy sees a division's maps channel-stacked
+        policy_in = cfg.glance_dim * (cfg.num_frames // cfg.video_div if cfg.sthsth else 1)
         self.policy = ActorCritic(
-            cfg.glance_dim, (g, g), action_dim=cfg.action_dim,
+            policy_in, (g, g), action_dim=cfg.action_dim,
             hidden_dim=cfg.policy_hidden, encoder_channels=cfg.policy_channels,
+            continuous=cfg.continuous_policy, encoder_bn=cfg.policy_bn,
         )
-        self.classifier = RecurrentClassifier(
-            cfg.fused_dim, cfg.num_classes, hidden_dim=cfg.hidden_dim
-        )
+        if cfg.sthsth:
+            self.classifier = ConsensusHead(cfg.focus_dim, cfg.num_classes, cfg.dropout)
+        else:
+            self.classifier = RecurrentClassifier(
+                cfg.fused_dim, cfg.num_classes, hidden_dim=cfg.hidden_dim
+            )
         self.reset_parameters(generator)
         self.eval()
         self.to(device=dev, dtype=self.param_dtype, memory_format=torch.channels_last)
@@ -233,13 +264,28 @@ class GFV(nn.Module):
         (drawn from ``generator``)."""
         _, actor_out, value = self.policy.rollout_states(fmap.transpose(0, 1))
         actions, idx, logprob = sample_rollout(actor_out, mode, self.cfg.action_dim,
-                                               generator)
+                                               generator, self.cfg.continuous_policy)
         return {
-            "actions": actions.transpose(0, 1),
+            "actions": actions.transpose(0, 1).float(),
             "action_idx": idx.transpose(0, 1),
             "logprob": logprob.transpose(0, 1),
             "value": value.transpose(0, 1).float(),
         }
+
+    def policy_rollout_div(self, fmap: torch.Tensor, mode: str = "greedy",
+                           generator: Optional[torch.Generator] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """The sth-sth rollout: one action per video division, the policy
+        seeing the division's maps channel-stacked in the JAX package's order
+        (frame-major, ``jnp.moveaxis(..., 2, 4)``). fmap (B, Tg, gh, gw, C)
+        -> the dict of ``policy_rollout`` with time axis ``video_div``."""
+        b, tg, gh, gw, c = fmap.shape
+        d = self.cfg.video_div
+        if tg % d:
+            raise ValueError(f"num_frames {tg} not divisible by video_div {d}")
+        stacked = fmap.reshape(b, d, tg // d, gh, gw, c).movedim(2, 4)
+        return self.policy_rollout(stacked.reshape(b, d, gh, gw, (tg // d) * c),
+                                   mode, generator)
 
     # ---- phase 3: focus + classify ---------------------------------------
 
@@ -253,6 +299,13 @@ class GFV(nn.Module):
         """Stage-0 focuser head: (N, P, P, 3) -> logits (N, classes)."""
         _set_mode(self.focuser, train)
         return self.focuser(patches.to(self.cfg.dtype).permute(0, 3, 1, 2))
+
+    def classify_frame_logits(self, features: torch.Tensor, train: bool = False
+                              ) -> torch.Tensor:
+        """The sth-sth head: focuser features (B, T, 2048) -> per-frame local
+        logits (B, T, classes); its dropout active when ``train``."""
+        _set_mode(self.classifier, train)
+        return self.classifier(features.to(self.cfg.dtype))
 
     def classify_seq(self, fused: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> per-step logits (B, T, classes)."""
@@ -340,6 +393,9 @@ def inference(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
     must already be. Returns per-step logits (B, T, classes); the last step
     is the prediction.
     """
+    if model.cfg.sthsth:
+        raise ValueError("a consensus-head (sth-sth) model serves through "
+                         "models.gfv_sthsth.inference_sthsth")
     frames, frames_small = _on_model_device(model, device, frames, frames_small)
     use_fused = fused_enabled(fused)
     with model.autocast():

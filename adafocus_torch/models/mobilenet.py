@@ -2,8 +2,10 @@
 
 Same inverted-residual configuration and submodule names as the JAX
 package (``stem``, ``block_{i}_{j}/{expand,dw,project}``, ``head_conv``,
-``classifier``), so a flax tree maps onto the state dict key by key. The
-temporal-shift (TSM) variant is not ported yet.
+``classifier``), so a flax tree maps onto the state dict key by key. With
+``n_frames > 0`` every residual block shifts its branch input across time
+(``models/tsm.py``), the TSM glancer of the sth-sth family; the skip
+connection adds the unshifted input.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 from torch import nn
 
 from adafocus_torch.models.layers import ConvBNAct, global_avg_pool, make_divisible
+from adafocus_torch.models.tsm import temporal_shift_nchw
 
 # (expand_ratio t, channels c, num_blocks n, stride s)
 _INVERTED_RESIDUAL_CFG = (
@@ -29,10 +32,11 @@ _INVERTED_RESIDUAL_CFG = (
 
 class InvertedResidual(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 expand_ratio: int):
+                 expand_ratio: int, n_frames: int = 0):
         super().__init__()
         hidden = int(round(in_channels * expand_ratio))
         self.use_res = stride == 1 and in_channels == out_channels
+        self.n_frames = n_frames
         self.expand = (
             ConvBNAct(in_channels, hidden, kernel_size=1)
             if expand_ratio != 1 else None
@@ -42,16 +46,21 @@ class InvertedResidual(nn.Module):
         self.project = ConvBNAct(hidden, out_channels, kernel_size=1, act=None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x if self.expand is None else self.expand(x)
+        h = x
+        if self.use_res and self.n_frames > 0:
+            h = temporal_shift_nchw(h, self.n_frames)
+        h = h if self.expand is None else self.expand(h)
         h = self.project(self.dw(h))
         return x + h if self.use_res else h
 
 
 class MobileNetV2(nn.Module):
     """``features`` returns (pre-pool map, pooled vector); ``classify`` is
-    the stage-0 pretraining head, with dropout 0.2 in train mode."""
+    the stage-0 pretraining head, with dropout 0.2 in train mode (and the
+    sth-sth family's per-frame global logits). ``n_frames > 0``: the TSM
+    variant, T = ``n_frames`` consecutive frames a clip along the batch."""
 
-    def __init__(self, num_classes: int = 1000):
+    def __init__(self, num_classes: int = 1000, n_frames: int = 0):
         super().__init__()
         self.feature_dim = make_divisible(1280)
         in_c = make_divisible(32)
@@ -62,7 +71,7 @@ class MobileNetV2(nn.Module):
             for j in range(n):
                 name = f"block_{i}_{j}"
                 self.add_module(
-                    name, InvertedResidual(in_c, out_c, s if j == 0 else 1, t)
+                    name, InvertedResidual(in_c, out_c, s if j == 0 else 1, t, n_frames)
                 )
                 self.block_names.append(name)
                 in_c = out_c

@@ -1,11 +1,15 @@
-"""Recurrent actor-critic policy, discrete grid (counterpart of
-adafocus_tpu/models/policy.py).
+"""Recurrent actor-critic policy (counterpart of adafocus_tpu/models/policy.py).
 
-A 1x1-conv state encoder over the glance feature map, a GRU carried across
-the T focus steps, a linear actor over a K-point anchor grid and a scalar
-critic. Actions are the greedy argmax (eval) or a categorical draw from an
-explicit ``torch.Generator`` (the stage-2 PPO rollout, ``sample_discrete``).
-The continuous Gaussian policy of the sth-sth family is not ported yet.
+A 1x1-conv state encoder over the glance feature map (with BatchNorm in the
+sth-sth variant), a GRU carried across the policy's steps, a linear actor
+and a scalar critic.
+
+- Discrete: the actor scores a K-point anchor grid; actions are the greedy
+  argmax (eval) or a categorical draw from an explicit ``torch.Generator``
+  (the stage-2 PPO rollout, ``sample_discrete``).
+- Continuous (the sth-sth family): the actor emits a sigmoid 2-d mean; the
+  greedy action is the mean. Sampling the Gaussian around it (stage 2 of
+  that family) is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from adafocus_torch.models.gru import GRUCell
+from adafocus_torch.models.layers import BatchNorm2d
 
 # width of the encoded policy state, whatever the GRU's hidden size (the
 # JAX package's ActorCritic.feat_dim, which GFV leaves at its default)
@@ -47,31 +52,43 @@ class StateEncoder(nn.Module):
     """Glance feature map (N, h, w, C) -> flat policy state (N, STATE_DIM):
     1x1 conv, ReLU, flatten in (h, w, c) order, Dense, ReLU.
 
+    ``use_bn`` (the sth-sth encoder): the conv has no bias and BatchNorm
+    (flax's: momentum 0.9, eps 1e-5) follows it, before the ReLU. As in the
+    JAX package, no BatchNorm follows ``fc``, where the original sth-sth
+    encoder has one.
+
     The flatten order is the JAX package's NHWC one, so that the ``fc``
     weights line up with a bridged flax tree."""
 
     def __init__(self, in_channels: int, map_hw: Tuple[int, int],
-                 conv_channels: int = 32):
+                 conv_channels: int = 32, use_bn: bool = False):
         super().__init__()
-        self.proj = nn.Conv2d(in_channels, conv_channels, 1)
+        self.proj = nn.Conv2d(in_channels, conv_channels, 1, bias=not use_bn)
+        self.bn = BatchNorm2d(conv_channels) if use_bn else None
         self.fc = nn.Linear(map_hw[0] * map_hw[1] * conv_channels, STATE_DIM)
 
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.proj(fmap.permute(0, 3, 1, 2)))
+        x = self.proj(fmap.permute(0, 3, 1, 2))
+        if self.bn is not None:
+            x = self.bn(x)
+        x = F.relu(x)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         return F.relu(self.fc(x))
 
 
 class ActorCritic(nn.Module):
-    """Discrete recurrent actor-critic over a K-point anchor grid."""
+    """Recurrent actor-critic: discrete over a K-point anchor grid, or
+    ``continuous`` (a sigmoid 2-d mean)."""
 
     def __init__(self, in_channels: int, map_hw: Tuple[int, int],
                  action_dim: int = 49, hidden_dim: int = 1024,
-                 encoder_channels: int = 32):
+                 encoder_channels: int = 32, continuous: bool = False,
+                 encoder_bn: bool = False):
         super().__init__()
-        self.encoder = StateEncoder(in_channels, map_hw, encoder_channels)
+        self.continuous = continuous
+        self.encoder = StateEncoder(in_channels, map_hw, encoder_channels, encoder_bn)
         self.gru = GRUCell(STATE_DIM, hidden_dim)
-        self.actor = nn.Linear(hidden_dim, action_dim)
+        self.actor = nn.Linear(hidden_dim, 2 if continuous else action_dim)
         self.critic = nn.Linear(hidden_dim, 1)
 
     def rollout_states(self, fmaps_tb: torch.Tensor
@@ -80,14 +97,18 @@ class ActorCritic(nn.Module):
         then actor and critic batched.
 
         fmaps_tb: (T, B, gh, gw, C). Returns time-major
-        (hiddens (T, B, H), actor logits (T, B, K), value (T, B)).
+        (hiddens (T, B, H), actor out (T, B, K) logits or (T, B, 2) sigmoid
+        means in the compute dtype, value (T, B)).
         """
         t, b = fmaps_tb.shape[:2]
         states = self.encoder(fmaps_tb.reshape((t * b,) + fmaps_tb.shape[2:]))
         _, hiddens = self.gru.scan_time(
             self.gru.initial_state(b, states.dtype), states.reshape(t, b, -1)
         )
-        return hiddens, self.actor(hiddens), self.critic(hiddens)[..., 0]
+        actor_out = self.actor(hiddens)
+        if self.continuous:
+            actor_out = torch.sigmoid(actor_out)
+        return hiddens, actor_out, self.critic(hiddens)[..., 0]
 
 
 def discrete_logprobs(logits: torch.Tensor) -> torch.Tensor:
@@ -122,22 +143,33 @@ def discrete_to_coords(idx: torch.Tensor, action_dim: int) -> torch.Tensor:
 
 
 def sample_rollout(actor_out: torch.Tensor, mode: str, action_dim: int,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   continuous: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Action selection over a time-major rollout.
 
-    actor_out: (T, B, K) logits. mode 'greedy' takes the argmax, 'sample'
+    actor_out: (T, B, K) logits, or (T, B, 2) sigmoid means when
+    ``continuous``. mode 'greedy' takes the argmax (the mean), 'sample'
     draws from ``generator`` (required). Returns time-major (actions (T, B,
-    2) f32, idx (T, B), logprob (T, B) f32, zeros in greedy mode).
+    2), f32 on the grid and in the means' dtype when continuous, idx (T, B),
+    zeros when continuous, logprob (T, B) f32, zeros in greedy mode).
     """
+    if mode not in ("greedy", "sample"):
+        raise ValueError(f"unknown mode {mode!r}: 'greedy' or 'sample'")
+    if continuous:
+        if mode == "sample":
+            raise NotImplementedError(
+                "sampling the continuous policy (stage 2 of the sth-sth family) "
+                "is not ported yet")
+        zeros = actor_out.shape[:-1]
+        return (actor_out, torch.zeros(zeros, dtype=torch.long, device=actor_out.device),
+                torch.zeros(zeros, dtype=torch.float32, device=actor_out.device))
     if mode == "sample":
         if generator is None:
             raise ValueError("mode='sample' needs a generator")
         idx, logprob = sample_discrete(actor_out, generator)
         logprob = logprob.float()
-    elif mode == "greedy":
+    else:
         idx = greedy_discrete(actor_out)
         logprob = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
-    else:
-        raise ValueError(f"unknown mode {mode!r}: 'greedy' or 'sample'")
     return discrete_to_coords(idx, action_dim), idx, logprob

@@ -2,8 +2,11 @@
 
 Submodule names follow the JAX package (``stem``, ``layer{S}_{J}/{conv1,
 conv2,conv3,down}``, ``fc``). The stride sits on ``conv2``, the 3x3, and
-the stem's max-pool is 3/2/1. The temporal-shift variant and per-block
-rematerialization are not ported yet.
+the stem's max-pool is 3/2/1. With ``n_frames > 0`` every bottleneck
+shifts its branch input across time (``models/tsm.py``), the 'blockres'
+TSM of the sth-sth focuser; ``down`` and the identity read the unshifted
+input, and the stem and the max-pool do not shift. Per-block
+rematerialization is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,15 +18,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from adafocus_torch.models.layers import ConvBNAct, global_avg_pool
+from adafocus_torch.models.tsm import temporal_shift_nchw
 
 
 class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, n_frames: int = 0):
         super().__init__()
         out = features * self.expansion
+        self.n_frames = n_frames
         self.conv1 = ConvBNAct(in_channels, features, 1, act=F.relu)
         self.conv2 = ConvBNAct(features, features, 3, stride, act=F.relu)
         self.conv3 = ConvBNAct(features, out, 1, act=None)
@@ -32,7 +37,10 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv3(self.conv2(self.conv1(x)))
+        h = x
+        if self.n_frames > 0:
+            h = temporal_shift_nchw(h, self.n_frames)
+        h = self.conv3(self.conv2(self.conv1(h)))
         if self.down is not None:
             x = self.down(x)
         return F.relu(x + h)
@@ -43,9 +51,10 @@ _RESNET50_STAGES = (3, 4, 6, 3)
 
 class ResNet(nn.Module):
     """ResNet-50. ``forward`` is the stage-0 pretraining head (``features``,
-    then ``fc``); inference reads only ``features``."""
+    then ``fc``); inference reads only ``features``. ``n_frames > 0``: the
+    TSM variant, T = ``n_frames`` consecutive frames a clip along the batch."""
 
-    def __init__(self, num_classes: int = 1000):
+    def __init__(self, num_classes: int = 1000, n_frames: int = 0):
         super().__init__()
         self.stem = ConvBNAct(3, 64, kernel_size=7, stride=2, act=F.relu)
         self.block_names = []
@@ -57,7 +66,8 @@ class ResNet(nn.Module):
                 out_c = features * Bottleneck.expansion
                 downsample = j == 0 and (stride != 1 or in_c != out_c)
                 name = f"layer{stage + 1}_{j}"
-                self.add_module(name, Bottleneck(in_c, features, stride, downsample))
+                self.add_module(name, Bottleneck(in_c, features, stride, downsample,
+                                                 n_frames))
                 self.block_names.append(name)
                 in_c = out_c
         self.fc = nn.Linear(in_c, num_classes)
@@ -78,5 +88,5 @@ class ResNet(nn.Module):
         return self.fc(self.features(x)[1])
 
 
-def resnet50(num_classes: int = 1000) -> ResNet:
-    return ResNet(num_classes=num_classes)
+def resnet50(num_classes: int = 1000, n_frames: int = 0) -> ResNet:
+    return ResNet(num_classes=num_classes, n_frames=n_frames)

@@ -62,6 +62,17 @@ def create_train_state(cfg: GFVConfig, stage: int, optim: OptimConfig = OptimCon
     return TrainState(model, *make_stage_optimizer(model, stage, optim))
 
 
+def _check_trainable(model: GFV) -> None:
+    if model.cfg.serving_only:
+        raise NotImplementedError(
+            "training the sth-sth parts (TSM, the consensus head, the continuous "
+            "policy, the BatchNorm encoder, video divisions, dual-rate frames) is "
+            f"not ported yet: {model.cfg}")
+    if model.param_dtype not in (torch.float32, torch.float64):
+        raise ValueError("a train step needs float32 parameters (create_train_state); "
+                         f"this model's are {model.param_dtype}")
+
+
 def _ce_per_step(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy over B*T of per-step logits (B, T, C), the label
     broadcast over time; log-softmax in float32."""
@@ -89,9 +100,7 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
     if stage not in (0, 1, 3):
         raise ValueError(f"stage {stage}: stages 0, 1 and 3 only "
                          "(stage 2 is PPO: make_stage2_step)")
-    if model.param_dtype not in (torch.float32, torch.float64):
-        raise ValueError("a train step needs float32 parameters (create_train_state); "
-                         f"this model's are {model.param_dtype}")
+    _check_trainable(model)
     cfg = model.cfg
     train_glancer = stage == 0
     train_focuser = stage in (0, 1)
@@ -246,9 +255,7 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
     device: the PPO loss terms and mean ratio of the last epoch, and the
     mean reward and confidence.
     """
-    if model.param_dtype not in (torch.float32, torch.float64):
-        raise ValueError("a train step needs float32 parameters (create_train_state); "
-                         f"this model's are {model.param_dtype}")
+    _check_trainable(model)
     if ppo.policy is not model.policy:
         raise ValueError("the PPO learner must train this model's policy (ppo_init(model.policy))")
 

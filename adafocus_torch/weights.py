@@ -12,6 +12,10 @@ state-dict key by joining its parts with dots and renaming the leaf:
   BatchNorm mean / var (stats)   -> ``running_mean`` / ``running_var``
                                     (plus ``num_batches_tracked`` = 0)
 
+A sth-sth tree crosses the same way: the encoder's ``proj`` kernel has no
+bias there, its ``bn`` takes scale, bias and running statistics, the actor
+is 2 wide, and the consensus head is ``classifier/fc``.
+
 The caller converts the flax trees to numpy first (``jax.tree.map(np.asarray,
 ...)``), so nothing here imports JAX. Every leaf is carried, the heads that
 inference does not use included; a leaf name the bridge does not know

@@ -18,11 +18,15 @@ Phases, each raising on failure:
      source column, on an unaligned base and from actions, whose offsets
      must equal ``patch_offsets``'; the fused blocks
      at every distinct block shape of the flagship in float32 and bf16, at
-     N=4 in two rounds of fresh inputs and, in bf16, at N=1024), and times
+     N=4 in two rounds of fresh inputs and, in bf16, at N=1024; and at
+     every distinct block shape of the matched sth-sth configuration in its
+     temporal-shift split, ``use_res=False``, at N=4 in float32 and bf16
+     and in bf16 at N=512 glance frames and N=768 patches), and times
      kernel, plain version and a library yardstick with CUDA events (patch
      extraction at the four shapes of ``port_patch_times.SHAPES``, beside a
      strided and a contiguous ``copy_`` of the same bytes, also by the
-     profiler's kernel durations);
+     profiler's kernel durations; the blocks beside cuDNN's block, or its
+     branch in the TSM split);
   4. drives the flagship deployment forward (``models.gfv.inference``, bf16,
      B=2, T=16, full depth and width, weights from a seeded generator) on
      both backbone paths, library convs (``fused="auto"``) and fused blocks
@@ -67,11 +71,27 @@ Phases, each raising on failure:
      frequency within 5 sigma of its softmax probability. Three more
      stage-2 steps run under ``torch.profiler`` (each phase's device
      window, busy and idle time; the step's device idle share).
+  8. the matched sth-sth configuration (``benchmark.sthsth_cfg(144)``: 8
+     glance frames at 224^2, 12 focus frames cropped to 144^2, TSM
+     backbones, continuous BatchNorm policy, sum consensus, 174 classes,
+     bf16, full depth and width), this slice's main path
+     (``models.gfv_sthsth.inference_sthsth``): at B=2 on both backbone
+     paths with the launch counts set to 0 just before (one patch launch
+     on the cuDNN path; 17 + 16 + 1 on the fused path), logits (2, 174)
+     and finite; bf16 against float32 with the float32 actions injected
+     (3e-2), fused against unfused (bf16 3e-2, float32 with TF32 off 1e-3);
+     the patch kernel from the policy's continuous actions against
+     ``patch_offsets`` and the plain version, bit for bit; then at B=64 on
+     both paths, videos/s of three runs, each phase's mean ms by CUDA
+     events and peak memory; then ``port_bench.bench`` once (its JSON on a
+     line of its own).
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
-instruction), the profile, the stage-1 and stage-2 timings and the kernel
-table as JSON lines, then as its last line
+instruction), the profile, the stage-1 and stage-2 timings, the matched configuration's
+results, the bench and the kernel table (each kernel's launches on every
+path, its times at the flagship's and the matched configuration's shapes)
+as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -104,6 +124,7 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak (data sheet)
 FUSED_LAUNCHES = {"extract_patches": 1, "fused_inverted_residual": 17,
                   "fused_bottleneck": 16}
 SM_COUNT = 132              # H100 SXM
+MATCHED_B = 64              # the matched configuration's batch (bench.py's, the reference's)
 N4_ROUNDS = 2               # rounds of fresh inputs for the N=4 block checks
 
 
@@ -451,7 +472,6 @@ def check_fused_blocks(model16, device, sass: dict) -> tuple:
 
     from adafocus_torch.models.mobilenet import InvertedResidual
     from adafocus_torch.models.resnet import Bottleneck
-    from adafocus_torch.ops.fused_blocks import out_size, plan_bottleneck, plan_inv_residual
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -485,33 +505,70 @@ def check_fused_blocks(model16, device, sass: dict) -> tuple:
             kernel, module.to(device), h, cin, gen, device, use_res, label))
 
     n = 1024
+    per_shape = _timed_block_rows(shapes, {k: n for k in shapes}, gen, device, sass, worst)
+    return _kernel_rows(per_shape, worst,
+                        f"every block of one flagship forward, N={n} bf16, summed"), per_shape
+
+
+def _library_block(kernel: str, module, tsm: bool):
+    """The library yardstick of one kernel call: the unfused block as cuDNN
+    convs (NCHW views of channels-last memory), or in the temporal-shift
+    split only its branch, which is what the kernel computes there."""
+    if not tsm:
+        return module
+    if kernel == "fused_inverted_residual":
+        return lambda x: module.project(module.dw(x if module.expand is None
+                                                  else module.expand(x)))
+    return lambda x: module.conv3(module.conv2(module.conv1(x)))
+
+
+def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: dict,
+                      tsm: bool = False, label: str = "") -> list:
+    """Each distinct block shape in bf16 at N = ``n_of[kernel]``: the kernel
+    against its plain version (updating ``worst``), then timed beside the
+    plain version and the library yardstick (``_library_block``), with its
+    plan, occupancy and bound. ``tsm``: the temporal-shift split
+    (``use_res=False``; the bottleneck's ``down`` runs outside the kernel,
+    so neither its work nor its weights count)."""
+    import torch
+
+    from adafocus_torch.ops.fused_blocks import out_size, plan_bottleneck, plan_inv_residual
+
     per_shape = []
     for kernel, entries in shapes.items():
         fold, run, plain = _block_fns(kernel)
         plan_fn = plan_inv_residual if kernel == "fused_inverted_residual" else plan_bottleneck
+        n = n_of[kernel]
         for e in entries:
-            h, cin, chid, cout, stride, flag = e["key"]
             module = e["module"]
+            key = e["key"]
+            if tsm and kernel == "fused_bottleneck":
+                key = key[:5] + (False,)
+            h, cin, chid, cout, stride, flag = key
             params, args = fold(module, torch.bfloat16), _block_args(kernel, module)
+            if tsm:
+                args["use_res"] = False
             x = torch.randn((n, h, h, cin), generator=gen).to(device, torch.bfloat16)
             rel, d = _rel_err(run(x, params, **args), plain(x, params, **args))
             if not rel <= BLOCK_TOL["bfloat16"]:
-                raise AssertionError(f"{kernel} {e['block']} N={n} bf16: {rel}")
+                raise AssertionError(f"{kernel} {label}{e['block']} N={n} bf16: {rel}")
             worst[kernel] = max(worst[kernel], d)
             x_nchw = x.permute(0, 3, 1, 2)
+            library = _library_block(kernel, module, tsm)
             with torch.inference_mode():
                 ms = _time_ms(lambda: run(x, params, **args), iters=10, warmup=2)
                 plain_ms = _time_ms(lambda: plain(x, params, **args), iters=5, warmup=1)
-                library_ms = _time_ms(lambda: module(x_nchw), iters=10, warmup=2)
-            moved, flops = _block_cost(kernel, e["key"], n)
+                library_ms = _time_ms(lambda: library(x_nchw), iters=10, warmup=2)
+            moved, flops = _block_cost(kernel, key, n)
             bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
             plan = plan_fn(h, h, cin, chid, cout, stride, flag, 2, n)
-            inst = _instance(kernel, e["key"], plan)
+            inst = _instance(kernel, key, plan)
             ops = next(v for k, v in sass.items() if inst in k)
-            occ = _blocks_per_sm(kernel, e["key"], plan)
+            occ = _blocks_per_sm(kernel, key, plan)
             ho = out_size(h, stride)
             blocks = -(-n // plan.g) * -(-ho // plan.th) * -(-ho // plan.tw)
-            row = {"kernel": kernel, "block": e["block"], "launches": e["launches"],
+            row = {"kernel": kernel, "block": label + e["block"], "launches": e["launches"],
+                   "n": n, "use_res": args["use_res"],
                    "shape": f"{h}x{h}x{cin} -> {chid} -> {cout} s{stride}",
                    "plan": plan._asdict(), "blocks": blocks, "blocks_per_sm": occ,
                    "waves": -(-blocks // (SM_COUNT * occ)) if occ else None,
@@ -522,15 +579,21 @@ def check_fused_blocks(model16, device, sass: dict) -> tuple:
                    "tflops": flops / ms / 1e9,
                    "bytes": moved, "flops": flops, "max_rel_err": rel}
             per_shape.append(row)
-            print(f"{kernel} {e['block']} x{e['launches']} N={n} bf16 {row['shape']}: "
-                  f"kernel {ms!r} ms ({row['tflops']!r} TFLOP/s, {row['instr']}, plan "
-                  f"{tuple(plan)}, {blocks} blocks, {occ}/SM, {row['waves']} waves), "
-                  f"plain {plain_ms!r} ms, library block {library_ms!r} ms, bound "
+            print(f"{kernel} {row['block']} x{e['launches']} N={n} bf16 {row['shape']} "
+                  f"use_res={args['use_res']}: kernel {ms!r} ms ({row['tflops']!r} TFLOP/s, "
+                  f"{row['instr']}, plan {tuple(plan)}, {blocks} blocks, {occ}/SM, "
+                  f"{row['waves']} waves), plain {plain_ms!r} ms, library "
+                  f"{'branch' if tsm else 'block'} {library_ms!r} ms, bound "
                   f"{row['bound_ms']!r} ms ({row['bound_by']}); max|d|/max|plain| {rel!r}",
                   flush=True)
             del x, x_nchw
             torch.cuda.empty_cache()
+    return per_shape
 
+
+def _kernel_rows(per_shape: list, worst: dict, shape: str) -> list:
+    """The two block kernels' table rows: each shape's times, library time
+    and bound times its launches a forward, summed."""
     sources = {"fused_inverted_residual": ("fused_inv_residual.cu", 247),
                "fused_bottleneck": ("fused_bottleneck.cu", 397)}
     rows = []
@@ -544,9 +607,39 @@ def check_fused_blocks(model16, device, sass: dict) -> tuple:
             "replaces": f"adafocus_tpu/ops/fused_blocks.py:{line}",
             "max_abs_err": worst[kernel], **total,
             "bound_by": "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations",
-            "shape": f"every block of one flagship forward, N={n} bf16, summed",
+            "shape": shape,
         })
-    return rows, per_shape
+    return rows
+
+
+def check_matched_blocks(model_sth, device, sass: dict) -> tuple:
+    """Phase 3 for the two block kernels in the temporal-shift split of the
+    matched sth-sth configuration (224^2 glance, 144^2 patches): every
+    distinct block shape with ``use_res=False``, as that forward runs them,
+    against the plain version at N=4 in float32 and bf16 (BatchNorm
+    randomised), then in bf16 at the B=64 forward's N (512 glance frames,
+    768 patches), timed there beside the block's branch as cuDNN convs.
+    Returns (kernel rows summed over one forward, per-shape rows)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = model_sth.cfg
+    gen = torch.Generator().manual_seed(SEED + 5)
+    shapes = _block_shapes(model_sth)
+    worst = {k: 0.0 for k in shapes}
+    for kernel, entries in shapes.items():
+        for e in entries:
+            h, cin = e["key"][:2]
+            worst[kernel] = max(worst[kernel], _check_block(
+                kernel, e["module"], h, cin, gen, device, use_res=False,
+                label=f"matched {e['block']} TSM split"))
+    n_of = {"fused_inverted_residual": MATCHED_B * cfg.num_frames,
+            "fused_bottleneck": MATCHED_B * cfg.t_focuser}
+    per_shape = _timed_block_rows(shapes, n_of, gen, device, sass, worst, tsm=True,
+                                  label="matched ")
+    return _kernel_rows(per_shape, worst, f"every block of one matched sth-sth forward "
+                        f"in the TSM split, B={MATCHED_B} (N {n_of}), bf16, summed"), per_shape
 
 
 def _fused_with_actions(model, frames, small, actions):
@@ -1194,6 +1287,164 @@ def check_sampler(device) -> dict:
     return {"draws": SAMPLER_DRAWS, "max_sigma": z}
 
 
+# phase 8, the matched sth-sth configuration (adafocus_torch.benchmark
+# sthsth_cfg(144)): the reference's published configuration, served by
+# models.gfv_sthsth.inference_sthsth, this slice's main path. Limits as in
+# phase 4.
+MATCHED_PHASES = ("glance", "policy", "extract", "focus", "classify")
+
+
+def _matched_with_actions(model, frames, small, actions_div, fused: bool):
+    """The sth-sth forward with injected per-division actions, composed from
+    the phases, on either backbone path."""
+    import torch
+
+    from adafocus_torch.models.fused_inference import fused_focus, fused_glance_logits
+    from adafocus_torch.models.gfv import extract_for_frames
+    from adafocus_torch.models.gfv_sthsth import (
+        actions_per_frame, glance_logits, local_frame_logits, sum_consensus,
+    )
+
+    cfg = model.cfg
+    b, tf = frames.shape[:2]
+    with torch.inference_mode(), model.autocast():
+        _, glob = (fused_glance_logits if fused else glance_logits)(model, small)
+        patches = extract_for_frames(frames, actions_per_frame(actions_div, tf),
+                                     cfg.image_size, cfg.patch_size)
+        if fused:
+            local = model.classify_frame_logits(fused_focus(model, patches).reshape(b, tf, -1))
+        else:
+            local = local_frame_logits(model, patches, b)
+        return sum_consensus(glob, local, cfg.with_glancer)
+
+
+def matched_forward(model, device) -> dict:
+    """Phase 8 at B=2: the main path once in bf16 on each backbone path,
+    with launch counts (one patch launch a forward on the cuDNN path; 17 +
+    16 + 1 on the fused path); on the same weights and injected float32
+    greedy actions, bf16 against float32 and fused against unfused; the
+    patch kernel from the policy's continuous actions against
+    ``patch_offsets`` and the plain version."""
+    import torch
+
+    from adafocus_torch.models.fused_inference import fused_glance_logits
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.models.gfv_sthsth import (
+        actions_per_frame, glance_division_rollout, inference_sthsth,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = model.cfg
+    b, tf, tg, s, g = 2, cfg.t_focuser, cfg.num_frames, cfg.image_size, cfg.glance_size
+    gen = torch.Generator().manual_seed(SEED + 6)
+    frames = torch.randn((b, tf, s, s, 3), generator=gen).to(device)
+    small = torch.randn((b, tg, g, g, 3), generator=gen).to(device)
+    frames16, small16 = frames.bfloat16(), small.bfloat16()
+
+    launches = {}
+    for fused in ("auto", "on"):
+        _launch_counts(reset=True)
+        logits = inference_sthsth(model, frames16, small16, device=device, fused=fused)
+        torch.cuda.synchronize()
+        launches[fused] = _launch_counts()
+        print(f"matched sth-sth B={b} fused={fused!r}: launches {launches[fused]}", flush=True)
+        if tuple(logits.shape) != (b, cfg.num_classes):
+            raise AssertionError(f"matched logits shape {tuple(logits.shape)}")
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"matched bf16 logits (fused={fused!r}) are not finite")
+    want_auto = {"extract_patches": 1, "fused_inverted_residual": 0, "fused_bottleneck": 0}
+    if launches["auto"] != want_auto:
+        raise AssertionError(f"matched cuDNN path launches {launches['auto']}, want {want_auto}")
+    if launches["on"] != FUSED_LAUNCHES:
+        raise AssertionError(f"matched fused path launches {launches['on']}, "
+                             f"want {FUSED_LAUNCHES}")
+
+    model32 = GFV(dataclasses.replace(cfg, dtype=torch.float32), device=device,
+                  generator=torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        roll32 = glance_division_rollout(model32, small)[2]
+        roll16 = glance_division_rollout(model, small16)[2]
+        roll16f = model.policy_rollout_div(fused_glance_logits(model, small16)[0])
+    check_patch_at(frames16, actions_per_frame(roll16["actions"], tf), s, cfg.patch_size,
+                   f"matched B={b} Tf={tf} bf16, continuous actions")
+    acts = roll32["actions"]
+    logits32, logits16, logits32f, logits16f = (
+        _matched_with_actions(m, f, sm, acts, fu)
+        for m, f, sm, fu in ((model32, frames, small, False), (model, frames16, small16, False),
+                             (model32, frames, small, True), (model, frames16, small16, True)))
+    torch.cuda.synchronize()
+    for name, v in (("float32", logits32), ("fused float32", logits32f)):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"matched {name} logits are not finite")
+    print(f"matched B={b}: greedy actions {acts.tolist()} (float32); max|bf16 - f32| "
+          f"{(roll16['actions'] - acts).abs().max().item()!r}, max|fused - unfused| bf16 "
+          f"{(roll16f['actions'] - roll16['actions']).abs().max().item()!r}", flush=True)
+    rels = {}
+    for name, got, want, tol in (
+            ("bf16 vs f32", logits16, logits32, BF16_REL_TOL),
+            ("fused bf16 vs f32", logits16f, logits32, BF16_REL_TOL),
+            ("fused bf16 vs unfused bf16", logits16f, logits16, BF16_REL_TOL),
+            ("fused f32 vs unfused f32 (TF32 off)", logits32f, logits32, FUSED_F32_REL_TOL)):
+        rels[name] = _rel_err(got, want)[0]
+        print(f"matched B={b} on injected actions, {name}: max|d|/max|ref| = "
+              f"{rels[name]!r} (limit {tol})", flush=True)
+        if not rels[name] <= tol:
+            raise AssertionError(f"matched {name}: logits differ by {rels[name]} > {tol}")
+    del model32
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_rel_err": rels}
+
+
+def matched_throughput(model, device, fused: str, iters: int = 10) -> dict:
+    """Phase 8 at B=64 on one backbone path: videos/s of three timed runs
+    (``benchmark.inference_rates``), the mean device ms of each phase over
+    five forwards (CUDA events between the phases), peak memory, and the
+    patch kernel from the policy's actions against the plain version."""
+    import torch
+
+    from adafocus_torch.benchmark import inference_rates, make_data
+    from adafocus_torch.models.fused_inference import fused_focus, fused_glance_logits
+    from adafocus_torch.models.gfv import extract_for_frames
+    from adafocus_torch.models.gfv_sthsth import actions_per_frame, glance_logits, sum_consensus
+
+    torch.backends.cudnn.benchmark = True
+    cfg = model.cfg
+    b, tf = MATCHED_B, cfg.t_focuser
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vps = inference_rates(model, b, iters, 3, SEED, fused=fused)
+    data = make_data(cfg, b, device=device, seed=SEED + 7)
+    frames, small = data["frames"], data["frames_small"]
+    on = fused == "on"
+    phases = dict.fromkeys(MATCHED_PHASES, 0.0)
+    n_timed = 5
+    with torch.inference_mode(), model.autocast():
+        for i in range(n_timed + 1):   # the first forward is warm-up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            fmap, glob = (fused_glance_logits if on else glance_logits)(model, small)
+            ev[1].record()
+            roll = model.policy_rollout_div(fmap)
+            ev[2].record()
+            acts = actions_per_frame(roll["actions"], tf)
+            patches = extract_for_frames(frames, acts, cfg.image_size, cfg.patch_size)
+            ev[3].record()
+            feats = (fused_focus(model, patches) if on else model.focus(patches))
+            ev[4].record()
+            sum_consensus(glob, model.classify_frame_logits(feats.reshape(b, tf, -1)),
+                          cfg.with_glancer)
+            ev[5].record()
+            torch.cuda.synchronize()
+            if i:
+                for k, name in enumerate(MATCHED_PHASES):
+                    phases[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
+        check_patch_at(frames, acts, cfg.image_size, cfg.patch_size,
+                       f"matched B={b} Tf={tf} bf16 fused={fused!r}")
+    peak = torch.cuda.max_memory_allocated()
+    return {"videos_per_s": vps, "phase_ms": phases, "peak_bytes": peak}
+
+
 def main() -> int:
     import torch
 
@@ -1228,11 +1479,14 @@ def main() -> int:
     sass = tensor_core_instructions()
     done("phase 2 (build, SASS)")
 
+    from adafocus_torch.benchmark import sthsth_cfg
     from adafocus_torch.models.gfv import GFV, flagship
     from port_patch_times import flagship_inputs, profile_phases
 
     model16 = GFV(flagship(), device=device,
                   generator=torch.Generator().manual_seed(SEED))
+    model_sth = GFV(sthsth_cfg(144), device=device,
+                    generator=torch.Generator().manual_seed(SEED))
     patch_row, patch_shapes = check_patch_kernel(device)
     for row in patch_shapes:
         print(f"extract_patches {row['shape']} (plan {tuple(row['plan'].values())}): kernel "
@@ -1245,6 +1499,8 @@ def main() -> int:
     fused_rows, per_shape = check_fused_blocks(model16, device, sass)
     rows += fused_rows
     done("phase 3, fused blocks")
+    matched_rows, matched_shapes = check_matched_blocks(model_sth, device, sass)
+    done("phase 3, fused blocks in the matched configuration's TSM split")
     launches = flagship_forward(model16, device)["launches"]
     done("phase 4")
     # each kernel's count from the run of its own path: the library-conv
@@ -1279,22 +1535,52 @@ def main() -> int:
     stage2["precision"] = train_stage2_precisions(device)
     stage2["sampler"] = check_sampler(device)
     done("phase 7")
-    # the patch kernel's count from the run of this slice's main path, the
-    # stage-2 step; the counts of the other paths beside it
+    matched = matched_forward(model_sth, device)
+    for fused, iters in (("auto", 10), ("on", 5)):
+        run = matched[fused] = matched_throughput(model_sth, device, fused, iters)
+        print(f"matched sth-sth 144^2 bf16 B={MATCHED_B} fused={fused!r}: videos/s "
+              f"{run['videos_per_s']!r}; phase ms {json.dumps(run['phase_ms'])}; peak memory "
+              f"{run['peak_bytes']} B ({run['peak_bytes'] / 2**30:.2f} GiB) ({card})", flush=True)
+    del model_sth
+    torch.cuda.empty_cache()
+    import port_bench
+
+    bench = port_bench.bench(device)
+    done("phase 8")
+    # each kernel's count from the run of this slice's main path, the
+    # matched sth-sth forward (the patch kernel on the cuDNN path, the
+    # blocks on the fused path); the counts of the other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
-    rows[0]["launches"] = stage2["launches"]["extract_patches"]
-    rows[0]["launches_by_path"] = {
-        "inference, cuDNN path, 1 forward": launches["auto"]["extract_patches"],
-        "inference, fused path, 1 forward": launches["on"]["extract_patches"],
-        f"train stage 1, {n_steps} steps": train["launches"]["extract_patches"],
-        **{f"{k}, {1 if k == 'eval' else 2} step(s)": v["extract_patches"]
-           for k, v in train_launches.items()},
-        f"train stage 2, {n_steps} steps": stage2["launches"]["extract_patches"]}
+    paths = {"matched sth-sth inference, cuDNN path, 1 forward": matched["launches"]["auto"],
+             "matched sth-sth inference, fused path, 1 forward": matched["launches"]["on"],
+             "flagship inference, cuDNN path, 1 forward": launches["auto"],
+             "flagship inference, fused path, 1 forward": launches["on"],
+             f"train stage 1, {n_steps} steps": train["launches"],
+             **{f"{k}, {1 if k == 'eval' else 2} step(s)": v
+                for k, v in train_launches.items()},
+             f"train stage 2, {n_steps} steps": stage2["launches"]}
+    patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
+    rows[0]["launches"] = matched["launches"]["auto"]["extract_patches"]
+    rows[0]["matched"] = {
+        "ms": patch_matched["us"] / 1e3, "plain_ms": patch_matched["plain_us"] / 1e3,
+        "bound_ms": patch_matched["bound_us"] / 1e3, "bound_by": "bytes",
+        "library_ms": patch_matched["strided_copy_us"] / 1e3,
+        "shape": f"{patch_matched['shape']}: N={patch_matched['n']} "
+                 f"{patch_matched['frames']} P={patch_matched['p']} bf16"}
+    for row, mrow in zip(rows[1:], matched_rows):
+        row["launches"] = matched["launches"]["on"][row["name"]]
+        row["matched"] = {k: mrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "max_abs_err", "shape")}
+    for row in rows:
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
     print(json.dumps({"extraction_profile": prof}), flush=True)
     print(json.dumps({"patch_shapes": patch_shapes}), flush=True)
     print(json.dumps({"fused_shapes": per_shape}), flush=True)
+    print(json.dumps({"matched_fused_shapes": matched_shapes}), flush=True)
     print(json.dumps({"train_stage1": train}), flush=True)
     print(json.dumps({"train_stage2": stage2}), flush=True)
+    print(json.dumps({"matched": matched}), flush=True)
+    print(json.dumps({"port_bench": bench}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,10 @@ tensor-core kernels' edges: depths that are not a multiple of 16 (Cin 24,
 (Cout 12; Chid 16), rows that are not 16-byte aligned (Cin 20), a sample
 count that is not a multiple of the samples per block, both ways of sharing
 a block between its two warpgroups, and the flagship's widest bottlenecks
-at N=9.
+at N=9. Both also run at every distinct block shape of the matched sth-sth
+configuration in its temporal-shift split (``use_res=False``, N=4): the
+glancer's residual blocks at 224^2 and every focuser bottleneck at 144^2
+patches (36^2 to 5^2 maps), the down blocks without their ``down``.
 """
 
 import pytest
@@ -240,6 +243,10 @@ def test_cuda_sampler_frequencies():
 ])
 def test_cuda_inverted_residual_matches_reference(dtype, cin, cout, stride, expand,
                                                   size, use_res, n):
+    _check_inverted_residual(dtype, cin, cout, stride, expand, size, use_res, n)
+
+
+def _check_inverted_residual(dtype, cin, cout, stride, expand, size, use_res, n):
     _needs_gpu()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -271,6 +278,10 @@ def test_cuda_inverted_residual_matches_reference(dtype, cin, cout, stride, expa
 ])
 def test_cuda_bottleneck_matches_reference(dtype, cin, features, stride, downsample, size,
                                            use_res, n):
+    _check_bottleneck(dtype, cin, features, stride, downsample, size, use_res, n)
+
+
+def _check_bottleneck(dtype, cin, features, stride, downsample, size, use_res, n):
     _needs_gpu()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -287,3 +298,31 @@ def test_cuda_bottleneck_matches_reference(dtype, cin, features, stride, downsam
     want = tfb.fused_bottleneck_reference(x, fold, stride, use_res)
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel_err(got, want) <= CUDA_TOL[dtype]
+
+
+# every distinct block of the matched sth-sth configuration (224^2 glance,
+# 144^2 patches) that runs in the temporal-shift split, use_res=False on the
+# shifted input: the glancer's residual blocks (H, C, expand ratio) and every
+# focuser bottleneck (H, Cin, features, stride, downsample), whose ``down``
+# runs outside the kernel
+MATCHED_TSM_IR = [(56, 24, 6), (28, 32, 6), (14, 64, 6), (14, 96, 6), (7, 160, 6)]
+MATCHED_TSM_BOTTLENECK = [
+    (36, 64, 64, 1, True), (36, 256, 64, 1, False), (36, 256, 128, 2, True),
+    (18, 512, 128, 1, False), (18, 512, 256, 2, True), (9, 1024, 256, 1, False),
+    (9, 1024, 512, 2, True), (5, 2048, 512, 1, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size,c,expand", MATCHED_TSM_IR)
+def test_cuda_inverted_residual_tsm_split_matches_reference(dtype, size, c, expand):
+    _check_inverted_residual(dtype, c, c, 1, expand, size, False, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size,cin,features,stride,downsample", MATCHED_TSM_BOTTLENECK)
+def test_cuda_bottleneck_tsm_split_matches_reference(dtype, size, cin, features, stride,
+                                                     downsample):
+    _check_bottleneck(dtype, cin, features, stride, downsample, size, False, 4)

@@ -184,13 +184,15 @@ def test_inference_fused_matches_jax(monkeypatch):
 
 
 def test_fused_routing_and_unported_tsm():
+    # the temporal-shift backbones are ported (tests/test_torch_port_sthsth.py
+    # holds them against JAX); a batch that is not whole clips is refused
     assert tfi.fused_enabled("on")
     assert not tfi.fused_enabled("auto") and not tfi.fused_enabled("off")
-    x = torch.zeros(2, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="temporal-shift"):
-        tfi.mobilenet_features_fused(tmob.MobileNetV2(10), x, n_frames=2)
-    with pytest.raises(NotImplementedError, match="temporal-shift"):
-        tfi.resnet_features_fused(tres.resnet50(10), x, n_frames=2)
+    x = torch.zeros(3, 32, 32, 3)
+    with pytest.raises(ValueError, match="n_frames"):
+        tfi.mobilenet_features_fused(tmob.MobileNetV2(10).eval(), x, n_frames=2)
+    with pytest.raises(ValueError, match="n_frames"):
+        tfi.resnet_features_fused(tres.resnet50(10).eval(), x, n_frames=2)
 
 
 def _small_folds():

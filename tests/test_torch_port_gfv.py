@@ -98,7 +98,8 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def _port_files():
     return sorted((ROOT / "adafocus_torch").rglob("*.py")) + [
-        ROOT / name for name in ("chip_smoke.py", "port_patch_times.py", "port_videos_per_s.py")]
+        ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_patch_times.py",
+                                  "port_videos_per_s.py")]
 
 
 def test_port_imports_no_jax():
