@@ -15,7 +15,11 @@ policy with the random-patch lookahead baseline (``ppo.core``), and the
 eval step; ``train.optim``). The deployment forward of the sth-sth family
 (``models.gfv_sthsth.inference_sthsth``: temporal-shift backbones, one
 continuous action per video division, sum consensus), not yet its
-training. ``benchmark`` times the forwards (``port_bench.py``).
+training. ``benchmark`` times the forwards (``port_bench.py``). The
+ActivityNet family trains and evaluates from the port's own CLI
+(``python -m adafocus_torch.cli.train`` / ``cli.evaluate``, ``config``)
+over its data layer (``data``: the loaders, the augmentation on the card,
+the dataset cache) and checkpoints (``train.checkpoint``).
 ``weights.gfv_state_dict_from_flax`` carries the weights of a trained flax
 GFV over, ``weights.ppo_state_from_flax`` a stage-2 learner's Adam state.
 

@@ -1,0 +1,234 @@
+"""Shared CLI plumbing (counterpart of adafocus_tpu/cli/common.py): device
+selection, seeding, logging, model and loader construction, and the batch
+prep that turns a raw uint8 batch into the model's inputs on the device.
+
+The batch prep is the device half of the input pipeline: augmentation,
+normalization and the glance downsample (``data/transforms.py``). The JAX
+package also pads the frames to its TPU kernel's lane layout
+(``pad_for_extraction``); that is a Mosaic constraint, and the port's patch
+kernel takes the unpadded (B, T, S, S, 3) frames, so the batch key is
+``frames``, not ``frames_flat``.
+
+Per-batch randomness comes from a ``torch.Generator`` on the device seeded
+from (seed, stream, index) through ``np.random.SeedSequence``
+(``batch_generator``), where the JAX package folds the index into its key:
+a resumed run draws what an unbroken run would.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from adafocus_torch import default_device
+from adafocus_torch.config import ExperimentConfig
+from adafocus_torch.data.pipeline import (
+    FrameFolderSource,
+    LoaderConfig,
+    SyntheticVideoSource,
+    VideoLoader,
+)
+from adafocus_torch.data.records import VideoRecord, parse_list_file, return_dataset
+from adafocus_torch.data.transforms import (
+    augment_eval,
+    augment_eval_views,
+    augment_train,
+    glance_downsample,
+    num_eval_views,
+    to_device,
+)
+
+# the stream of the validation batches' generators (the JAX package folds
+# 0x7FFFFFFF into its root key for them)
+EVAL_STREAM = 0x7FFFFFFF
+
+
+def select_device(run_cfg) -> torch.device:
+    """``run.platform``: 'cpu' runs on the CPU; '' or 'cuda' on the GPU
+    (``default_device``, which raises when none is visible). Several devices
+    and several hosts are ROADMAP item 12."""
+    if run_cfg.host_devices or run_cfg.multihost or run_cfg.platform == "tpu":
+        raise NotImplementedError(
+            "multi-device and multi-host runs (run.host_devices, run.multihost) and "
+            "run.platform=tpu are not ported yet (ROADMAP item 12)")
+    if run_cfg.platform == "cpu":
+        return torch.device("cpu")
+    if run_cfg.platform not in ("", "cuda"):
+        raise ValueError(f"unknown run.platform {run_cfg.platform!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; set run.platform=cpu to run on the CPU")
+    return default_device(None)
+
+
+def set_all_seeds(seed: int) -> torch.Generator:
+    """Python and numpy seeding; returns the CPU generator the model's
+    weights are drawn from."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def batch_generator(seed: int, stream: int, index: int, device: torch.device
+                    ) -> torch.Generator:
+    """The generator of one batch (training: stream = epoch), on ``device``."""
+    s = int(np.random.SeedSequence((seed, stream, index)).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+class Logger:
+    """stdout + append-to-file logging."""
+
+    def __init__(self, path: Optional[str] = None):
+        self.path = path
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+
+    def __call__(self, msg: str) -> None:
+        print(msg, flush=True)
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(msg + "\n")
+
+
+def check_family(cfg: ExperimentConfig) -> None:
+    if cfg.run.family != "actnet":
+        raise NotImplementedError(
+            f"run.family={cfg.run.family!r}: the CLI serves the ActivityNet family only; "
+            "sth-sth training and its CLI are ROADMAP item 10")
+
+
+def build_model(cfg: ExperimentConfig, device: torch.device):
+    """The GFV of ``cfg.model`` on ``device``, weights from the run's seed:
+    float32 parameters computing in ``cfg.model.dtype``, as a training run
+    keeps them."""
+    from adafocus_torch.models.gfv import GFV
+
+    return GFV(cfg.model, device=device, generator=set_all_seeds(cfg.run.seed),
+               param_dtype=torch.float32)
+
+
+def synthetic_records(n: int, num_classes: int, frames: int = 64):
+    return [
+        VideoRecord(f"synthetic{i}", frames, (i % num_classes, -1, -1))
+        for i in range(n)
+    ]
+
+
+def build_loader(cfg: ExperimentConfig, train: bool, device: torch.device):
+    """The train or validation loader; ``loader.cache=device`` holds the
+    frames on ``device``."""
+    run = cfg.run
+    loader_cfg = cfg.loader
+    if train:
+        mode = "train"
+    elif loader_cfg.dense_sample or loader_cfg.twice_sample:
+        mode = "test"  # dense/twice multi-clip sampling (test-time)
+    else:
+        mode = "val"
+    loader_cfg = LoaderConfig(
+        **{**loader_cfg.__dict__, "mode": mode,
+           "multi_label": run.dataset in ("actnet", "fcvid"),
+           "drop_last": train})
+    if run.synthetic_data:
+        # synthetic labels must live in the model's class space
+        records = synthetic_records(run.synthetic_videos, cfg.model.num_classes)
+        source = SyntheticVideoSource()
+    else:
+        spec, frames_root, list_file = return_dataset(
+            run.dataset, run.data_root, train=train
+        )
+        records = parse_list_file(list_file, dataset=run.dataset)
+        source = FrameFolderSource(frames_root, spec.image_tmpl)
+    loader = VideoLoader(records, source, loader_cfg)
+    if loader_cfg.cache:
+        from adafocus_torch.data.cache import maybe_cache
+
+        loader = maybe_cache(loader, loader_cfg.cache, device)
+    return loader
+
+
+def make_batch_prep(cfg: ExperimentConfig, train: bool, device: torch.device) -> Callable:
+    """raw uint8 batch -> ``{frames, frames_small, labels}`` on ``device``.
+
+    Returns ``run(raw, generator=None, draws=None) -> (batch, labels as
+    numpy, clips per video)``: ``generator`` (on ``device``) draws the
+    training augmentation, ``draws`` (``AugmentDraws``) replaces it. The
+    frames are in the model's dtype, unpadded; evaluation folds multi-clip
+    sampling and test-time views into the batch. ``run.host_frame_bytes``
+    counts the frame bytes copied from the host (0 while a device cache
+    serves the batches).
+    """
+    device = default_device(device)
+    model_cfg = cfg.model
+    aug = cfg.augment
+    n_views = 1 if train else num_eval_views(aug)
+
+    def expand_views(frames):
+        """(B, T, H, W, C) -> (B*V, T, S, S, C): test-time views,
+        view-minor so that validate()'s per-video consensus groups them
+        with the clips."""
+        out = augment_eval_views(frames, aug)
+        return out.reshape((-1,) + out.shape[2:])
+
+    def split_clips(frames: torch.Tensor, t_model: int):
+        """(B, k*T, ...) multi-clip test sampling -> (B*k, T, ...) clips."""
+        b, t_total = frames.shape[:2]
+        k = t_total // t_model
+        if k <= 1:
+            return frames, 1
+        return frames.reshape((b * k, t_model) + frames.shape[2:]), k
+
+    def on_device(frames) -> torch.Tensor:
+        if isinstance(frames, np.ndarray):
+            run.host_frame_bytes += frames.nbytes
+            return to_device(frames, device)
+        if frames.device != device:
+            run.host_frame_bytes += frames.numel() * frames.element_size()
+        return frames.to(device)
+
+    def run(raw: dict, generator: Optional[torch.Generator] = None, draws=None):
+        labels = np.asarray(raw["labels"])
+        labels_train = labels[:, 0] if labels.ndim == 2 else labels
+        frames = on_device(raw["frames"])
+        k = 1
+        if not train:
+            frames, k = split_clips(frames, model_cfg.num_frames)
+            k *= n_views  # crop views consensus-average like clips
+            if k > 1:
+                labels_train = np.repeat(labels_train, k)
+        if train:
+            big = augment_train(frames, generator, aug, draws)
+        elif n_views > 1:
+            big = expand_views(frames)
+        else:
+            big = augment_eval(frames, aug)
+        small = glance_downsample(big, model_cfg.glance_size)
+        batch = {
+            "frames": big.to(model_cfg.dtype),
+            "frames_small": small.to(model_cfg.dtype),
+            "labels": to_device(labels_train.astype(np.int64), device),
+        }
+        return batch, labels, k
+
+    run.host_frame_bytes = 0
+    return run
+
+
+class ProgressMeter:
+    """Per-epoch progress lines."""
+
+    def __init__(self, num_batches: int, prefix: str = ""):
+        self.num_batches = num_batches
+        self.prefix = prefix
+        self.t0 = time.time()
+
+    def line(self, batch_idx: int, metrics: dict) -> str:
+        elapsed = time.time() - self.t0
+        body = " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items())
+        return (f"{self.prefix}[{batch_idx + 1}/{self.num_batches}] "
+                f"t={elapsed:.1f}s {body}")

@@ -1,0 +1,187 @@
+"""Evaluation entry point of the port (counterpart of
+adafocus_tpu/cli/evaluate.py): load a checkpoint, run the deployment forward
+(greedy policy) over the validation set, report top-1/5 and mAP.
+
+    python -m adafocus_torch.cli.evaluate [--config conf.yaml] run.resume=<ckpt_dir> \\
+        [section.key=value ...]
+
+``run.eval_policy`` overrides the patch policy: 'random' (uniform patches
+from each batch's generator), 'center', or 'oracle' (the ground-truth
+target tracks of ``run.oracle_gt``, a miniact ``gt.npz``); these bracket the
+learned policy's accuracy. The model keeps float32 parameters and computes
+in ``model.dtype``, as a training run's does. On the GPU unless
+``run.platform=cpu``. ``run.quantize`` (int8 serving) is ROADMAP item 14.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from adafocus_torch.cli.common import (
+    Logger,
+    build_loader,
+    build_model,
+    check_family,
+    make_batch_prep,
+    select_device,
+)
+from adafocus_torch.cli.train import validate
+from adafocus_torch.config import echo, load_config
+from adafocus_torch.data.transforms import to_device
+from adafocus_torch.models.gfv import GFV, glance_policy_actions, inference_with_actions
+from adafocus_torch.ops.metrics import topk_accuracy
+from adafocus_torch.ops.patch import patch_offsets, random_patch_actions
+from adafocus_torch.train import checkpoint as ckpt
+from adafocus_torch.train.stages import make_eval_step
+
+
+def visualize_policy_patches(model, loader, prep, cfg, path, generator) -> None:
+    """Render where the greedy policy looks on the first eval batch."""
+    from adafocus_torch.utils.visualize import save_patch_grid
+
+    raw = next(iter(loader))
+    batch, _, _ = prep(raw, generator)
+    mc = cfg.model
+    with torch.no_grad(), model.autocast():
+        _, _, roll = glance_policy_actions(model, batch["frames_small"])
+    actions = roll["actions"]
+    n = min(cfg.run.visualize_patches, actions.shape[0])
+    offs = patch_offsets(actions[:n], mc.image_size, mc.patch_size).cpu().numpy()
+    frames = batch["frames"][:n].float().cpu().numpy()
+    save_patch_grid(path, frames, offs, mc.patch_size)
+
+
+def calibrate_from_loader(*args, **kwargs):
+    """int8 calibration: not ported yet."""
+    raise NotImplementedError("int8 calibration (run.quantize) is ROADMAP item 14")
+
+
+def make_eval_step_q8(*args, **kwargs):
+    """The int8 serving eval step: not ported yet."""
+    raise NotImplementedError("the int8 eval step (run.quantize) is ROADMAP item 14")
+
+
+def make_eval_step_forced(model: GFV, mode: str):
+    """Eval step with the patch policy overridden: 'random' or 'center'
+    patches, or 'oracle' patches from the batch's ``actions`` (attached by
+    the prep wrapper from the ground-truth tracks). ``step(batch,
+    generator) -> (logits, {"top1", "top5"})``."""
+    if mode not in ("random", "center", "oracle"):
+        raise ValueError(f"unknown forced policy {mode!r}")
+
+    def step(batch, generator):
+        small = batch["frames_small"]
+        b, n = small.shape[:2]
+        if mode == "random":
+            actions = random_patch_actions((b, n), generator, model.device)
+        elif mode == "center":
+            actions = torch.full((b, n, 2), 0.5, device=model.device)
+        else:
+            actions = batch["actions"]
+        logits = inference_with_actions(model, batch["frames"], small, actions,
+                                        device=model.device)
+        top1, top5 = topk_accuracy(logits[:, -1].float(), batch["labels"])
+        return logits, {"top1": top1, "top5": top5}
+
+    return step
+
+
+def build_oracle_table(cfg, loader) -> np.ndarray:
+    """(num_records, T, 2) ground-truth patch actions aligned with the val
+    loader's record order, from the dataset's gt.npz (``run.oracle_gt``),
+    at the frames that val sampling (segment centers) picks."""
+    from adafocus_torch.data.miniact import load_gt, oracle_actions
+    from adafocus_torch.data.sampling import sample_segment_indices
+
+    paths, centers, presence = load_gt(cfg.run.oracle_gt)
+    row = {p: i for i, p in enumerate(paths)}
+    lcfg = loader.cfg
+    if lcfg.dense_sample or lcfg.twice_sample:
+        raise SystemExit("eval_policy=oracle does not support multi-clip sampling")
+    mc = cfg.model
+    t = mc.t_focuser
+    out = np.empty((len(loader.records), t, 2), np.float32)
+    for i, rec in enumerate(loader.records):
+        r = row[rec.path]
+        idx = sample_segment_indices(rec.num_frames, t, mode="val") - 1
+        out[i] = oracle_actions(centers[r][idx], presence[r][idx], lcfg.canvas_size,
+                                mc.image_size, mc.patch_size)
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Evaluates ``run.resume``'s checkpoint (``model_best.pt`` when there
+    is one); returns top1, top5 and mAP."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--config", default=None)
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    check_family(cfg)
+    if cfg.run.quantize:
+        raise NotImplementedError(f"run.quantize={cfg.run.quantize!r}: int8 serving is "
+                                  "ROADMAP item 14")
+    policy_mode = cfg.run.eval_policy
+    if policy_mode not in ("learned", "random", "center", "oracle"):
+        raise SystemExit(f"unknown run.eval_policy {policy_mode!r}")
+    device = select_device(cfg.run)
+    log = Logger(os.path.join(cfg.run.ckpt_dir, "evaluate.log"))
+    log(echo(cfg))
+
+    model = build_model(cfg, device)
+    if cfg.run.resume:
+        tree = ckpt.load_checkpoint(cfg.run.resume, best=True) \
+            or ckpt.load_checkpoint(cfg.run.resume)
+        if tree is None:
+            raise SystemExit(f"no checkpoint under {cfg.run.resume}")
+        for name in ckpt.COMPONENTS:
+            getattr(model, name).load_state_dict(tree["components"][name])
+        log(f"loaded checkpoint from {cfg.run.resume}")
+    else:
+        log("WARNING: run.resume not set — evaluating a fresh init")
+
+    loader = build_loader(cfg, train=False, device=device)
+    if hasattr(loader, "fill"):
+        seconds = loader.fill()
+        log(f"val cache ({cfg.loader.cache}): {loader.nbytes} B filled in {seconds:.2f} s")
+    prep = make_batch_prep(cfg, train=False, device=device)
+    if policy_mode == "oracle":
+        if not cfg.run.oracle_gt:
+            raise SystemExit("eval_policy=oracle needs run.oracle_gt")
+        table = to_device(build_oracle_table(cfg, loader), device)
+        base_prep = prep
+
+        def prep(raw, generator=None, _bp=base_prep, _tbl=table):
+            batch, labels, k = _bp(raw, generator)
+            if k != 1:
+                raise SystemExit("oracle eval does not support multi-clip")
+            batch["actions"] = _tbl[to_device(raw["record_index"].astype(np.int64), device)]
+            return batch, labels, k
+
+        log(f"oracle actions table built for {table.shape[0]} videos")
+    if policy_mode != "learned":
+        eval_step = make_eval_step_forced(model, policy_mode)
+    else:
+        learned = make_eval_step(model)
+
+        def eval_step(batch, generator):
+            return learned(batch)
+    multi_label = cfg.run.dataset in ("actnet", "fcvid")
+    if cfg.run.visualize_patches > 0:
+        path = os.path.join(cfg.run.ckpt_dir, "patches.png")
+        visualize_policy_patches(model, loader, prep, cfg, path,
+                                 torch.Generator(device=device).manual_seed(cfg.run.seed))
+        log(f"policy patch grid saved to {path}")
+    results = validate(eval_step, loader, prep, log, multi_label, cfg.run.seed, device,
+                       anytime=cfg.run.anytime_eval)
+    log("final: " + " ".join(f"{k}={v:.4f}" for k, v in results.items()))
+    return results
+
+
+if __name__ == "__main__":
+    main()

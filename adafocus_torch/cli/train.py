@@ -1,0 +1,253 @@
+"""Training entry point of the port (counterpart of adafocus_tpu/cli/train.py):
+the ActivityNet family's four stages, one entry point.
+
+    python -m adafocus_torch.cli.train [--config conf.yaml] [section.key=value ...]
+
+Stage selection is ``run.stage`` (0..3). The run is on the GPU unless
+``run.platform=cpu``; without a GPU and without that flag it raises. Each
+epoch streams the training loader through the batch prep on the device
+(prefetched on a thread), trains, then evaluates and writes the
+``checkpoint.pt`` / ``model_best.pt`` pair under ``run.ckpt_dir``;
+``run.warm_start`` loads the previous stage's components
+(``train/checkpoint.py STAGE_LOADS``), ``run.resume`` continues a run.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
+``run.family=sthsth`` (10), ``model.frame_budget>0`` (11), several devices
+or hosts (12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from adafocus_torch.cli.common import (
+    EVAL_STREAM,
+    Logger,
+    ProgressMeter,
+    batch_generator,
+    build_loader,
+    check_family,
+    make_batch_prep,
+    select_device,
+    set_all_seeds,
+)
+from adafocus_torch.config import ExperimentConfig, echo, load_config
+from adafocus_torch.ops.metrics import AverageMeter, mean_average_precision, multi_hot
+from adafocus_torch.train import checkpoint as ckpt
+from adafocus_torch.train.stages import (
+    create_train_state,
+    make_eval_step,
+    make_stage2_step,
+    make_stage_train_step,
+)
+
+
+def build_steps(cfg: ExperimentConfig, state) -> tuple:
+    """(train_step, eval_step) of the configured stage; both take
+    ``(batch, generator)``."""
+    stage = cfg.run.stage
+    model = state.model
+    if stage == 2:
+        train = make_stage2_step(model, state.ppo)
+    else:
+        train = make_stage_train_step(model, stage, state.optimizer, state.scheduler)
+    eval_step = make_eval_step(model)
+    return train, lambda batch, generator: eval_step(batch)
+
+
+def build_state(cfg: ExperimentConfig, steps_per_epoch: int, device: torch.device,
+                log: Callable[[str], None] = print):
+    """The stage's train state (weights from the run's seed), then the full
+    resume of ``run.resume`` or the warm start of ``run.warm_start``.
+    Returns (state, start_epoch, best_acc)."""
+    if cfg.model.frame_budget > 0:
+        raise NotImplementedError("model.frame_budget > 0 (AdaFocus+) is ROADMAP item 11")
+    stage = cfg.run.stage
+    # the run's epochs and the loader's steps an epoch set the schedule
+    # (the JAX package's make_tx; stage 2 trains by PPO's Adam instead)
+    optim = dataclasses.replace(cfg.optim, epochs=cfg.run.epochs,
+                                steps_per_epoch=max(steps_per_epoch, 1))
+    state = create_train_state(cfg.model, stage, optim, device=device,
+                               generator=set_all_seeds(cfg.run.seed), ppo=cfg.ppo)
+    start_epoch, best_acc = 0, 0.0
+    if cfg.run.resume:
+        tree = ckpt.load_checkpoint(cfg.run.resume)
+        if tree is None:
+            raise SystemExit(f"no checkpoint under {cfg.run.resume}")
+        ckpt.restore_train_state(state, tree)
+        start_epoch = int(tree["meta"]["epoch"]) + 1
+        best_acc = ckpt.best_acc_of(tree)
+        log(f"resumed from {cfg.run.resume} at epoch {start_epoch}")
+    elif cfg.run.warm_start:
+        tree = ckpt.load_checkpoint(cfg.run.warm_start, best=True) \
+            or ckpt.load_checkpoint(cfg.run.warm_start)
+        if tree is None:
+            raise SystemExit(f"no checkpoint under {cfg.run.warm_start}")
+        ckpt.load_stage_components(state, tree, stage)
+        log(f"stage-{stage} warm start from {cfg.run.warm_start} "
+            f"(components: {ckpt.STAGE_LOADS[stage]})")
+    return state, start_epoch, best_acc
+
+
+def validate(eval_step, loader, prep, log, multi_label: bool, seed: int,
+             device: torch.device, anytime: bool = False) -> dict:
+    """Eval epoch: top-1/5 and mAP over the whole set on the host. With
+    multi-clip sampling or test-time views (k > 1 per video) the softmax is
+    averaged over a video's k entries and top-1/5 recomputed from it. With
+    ``anytime`` (a GRU head's per-step logits) it also logs the mAP after
+    every step."""
+    top1, top5 = AverageMeter("top1"), AverageMeter("top5")
+    all_scores, all_labels, all_steps = [], [], []
+    for i, raw in enumerate(loader):
+        gen = batch_generator(seed, EVAL_STREAM, i, device)
+        batch, full_labels, k = prep(raw, gen)
+        logits, metrics = eval_step(batch, gen)
+        b = batch["labels"].shape[0]
+        probs = F.softmax(logits.float(), dim=-1).cpu().numpy()
+        if k > 1:  # multi-clip eval: average the softmax over a video's clips
+            probs = probs.reshape((b // k, k) + probs.shape[1:]).mean(axis=1)
+        if probs.ndim == 3:
+            scores = probs[:, -1]
+            if anytime:
+                all_steps.append(probs)
+        else:
+            scores = probs
+        if k > 1:
+            labels1 = full_labels.reshape(len(full_labels), -1)[:, 0]
+            order = np.argsort(-scores, axis=1, kind="stable")
+            top1.update(float((order[:, 0] == labels1).mean()), len(labels1))
+            top5.update(float((order[:, :5] == labels1[:, None]).any(1).mean()),
+                        len(labels1))
+        else:
+            top1.update(float(metrics["top1"]), b)
+            top5.update(float(metrics["top5"]), b)
+        all_scores.append(scores)
+        all_labels.append(full_labels)
+    out = {"top1": top1.avg, "top5": top5.avg}
+    if all_scores:
+        scores = np.concatenate(all_scores)
+        labels = np.concatenate(all_labels)
+        hot = multi_hot(labels, scores.shape[1]) if multi_label else \
+            multi_hot(labels.reshape(len(labels), -1)[:, :1], scores.shape[1])
+        out["mAP"] = mean_average_precision(scores, hot)
+        if all_steps:
+            steps = np.concatenate(all_steps)  # (N, T, C)
+            per_t = [mean_average_precision(steps[:, t], hot)
+                     for t in range(steps.shape[1])]
+            log("  * anytime mAP per timestep: "
+                + " ".join(f"{m:.4f}" for m in per_t))
+    log("  * val: " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Runs the configured stage; returns ``best_acc``, each epoch's
+    training seconds, steps, videos and videos/s (loader, batch prep and
+    step, from the first batch asked of the loader to the last step done),
+    the caches' fill seconds and bytes, and the final ``state``."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--config", default=None, help="YAML config path")
+    ap.add_argument("overrides", nargs="*", help="section.key=value")
+    args = ap.parse_args(argv)
+    cfg = load_config(args.config, args.overrides)
+    check_family(cfg)
+    device = select_device(cfg.run)
+    log = Logger(os.path.join(cfg.run.ckpt_dir, cfg.run.log_file))
+    log(echo(cfg))
+    log(f"device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+
+    train_loader = build_loader(cfg, train=True, device=device)
+    val_loader = build_loader(cfg, train=False, device=device)
+    steps_per_epoch = len(train_loader)
+    log(f"train batches/epoch: {steps_per_epoch}, val batches: {len(val_loader)}")
+    if not cfg.run.synthetic_data:
+        from adafocus_torch.data import native
+
+        log(f"frame decoder: {native.describe()}")
+    caches = {}
+    for name, loader in (("train", train_loader), ("val", val_loader)):
+        if hasattr(loader, "fill"):
+            seconds = loader.fill()
+            caches[name] = {"fill_seconds": seconds, "bytes": loader.nbytes}
+            log(f"{name} cache ({cfg.loader.cache}): {loader.nbytes} B filled in "
+                f"{seconds:.2f} s")
+
+    state, start_epoch, best_acc = build_state(cfg, steps_per_epoch, device, log)
+    train_step, eval_step = build_steps(cfg, state)
+    prep_train = make_batch_prep(cfg, train=True, device=device)
+    prep_eval = make_batch_prep(cfg, train=False, device=device)
+    multi_label = cfg.run.dataset in ("actnet", "fcvid")
+    seed = cfg.run.seed
+
+    from adafocus_torch.data.prefetch import prefetch_to_device
+    from adafocus_torch.train.preemption import PreemptionGuard
+
+    guard = PreemptionGuard.install()
+    epoch = start_epoch
+    epochs = []
+    try:
+        for epoch in range(start_epoch, cfg.run.epochs):
+            train_loader.set_epoch(epoch)
+            meter = ProgressMeter(steps_per_epoch, prefix=f"epoch {epoch} ")
+
+            def prep_one(raw, i, _epoch=epoch):
+                gen = batch_generator(seed, _epoch, i, device)
+                batch, _, _ = prep_train(raw, gen)
+                return batch, gen
+
+            _sync(device)
+            t0 = time.perf_counter()
+            n_steps = n_videos = 0
+            for i, (batch, gen) in enumerate(
+                    prefetch_to_device(train_loader, prep_one, device=device)):
+                if guard.should_stop:
+                    break
+                metrics = train_step(batch, gen)
+                n_steps += 1
+                n_videos += batch["labels"].shape[0]
+                if (i + 1) % cfg.run.print_freq == 0 or i + 1 == steps_per_epoch:
+                    log(meter.line(i, {k: float(v) for k, v in metrics.items()}))
+            _sync(device)
+            seconds = time.perf_counter() - t0
+            epochs.append({"epoch": epoch, "steps": n_steps, "videos": n_videos,
+                           "seconds": seconds, "videos_per_s": n_videos / seconds})
+            log(f"epoch {epoch}: {n_steps} steps, {n_videos / seconds:.2f} videos/s "
+                "(loader, batch prep and step)")
+            if guard.should_stop:
+                log("preemption signal received — checkpointing and stopping")
+                break
+
+            if (epoch + 1) % cfg.run.eval_freq == 0 or epoch + 1 == cfg.run.epochs:
+                results = validate(eval_step, val_loader, prep_eval, log, multi_label, seed,
+                                   device, anytime=cfg.run.anytime_eval)
+                acc = results.get("mAP", results["top1"]) if multi_label \
+                    else results["top1"]
+                is_best = acc > best_acc
+                best_acc = max(best_acc, acc)
+                ckpt.save_checkpoint(cfg.run.ckpt_dir, state, epoch, acc, best_acc, is_best)
+                log(f"  * checkpoint saved (acc={acc:.4f}, best={best_acc:.4f})")
+    finally:
+        guard.uninstall()
+    guard.finalize(lambda: ckpt.save_checkpoint(
+        cfg.run.ckpt_dir, state, epoch, best_acc, best_acc))
+    log(f"done. best acc {best_acc:.4f}")
+    return {"best_acc": best_acc, "epochs": epochs, "caches": caches, "state": state,
+            "host_frame_bytes": prep_train.host_frame_bytes + prep_eval.host_frame_bytes}
+
+
+if __name__ == "__main__":
+    main()

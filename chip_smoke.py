@@ -85,11 +85,32 @@ Phases, each raising on failure:
      both paths, videos/s of three runs, each phase's mean ms by CUDA
      events and peak memory; then ``port_bench.bench`` once (its JSON on a
      line of its own).
+  9. the port's CLI, this slice's main path (``adafocus_torch.cli.train``
+     and ``cli.evaluate``, called in-process with ``--config
+     configs/actnet_default.yaml``: the flagship width, bf16, B=32, 96
+     synthetic videos in a device cache): stage 1 (two epochs), stage 2
+     warm-started from it (two epochs), stage 3 from stage 2 (one epoch),
+     then evaluate with the learned, random and center policies, each with
+     the launch counts set to 0 just before: one patch launch a stage-1/3
+     step and eval batch, two a stage-2 step, no fused-block launch; every
+     frame batch from the device cache (no frame byte from the host after
+     the fill); each warm start bit-exact for the components of
+     ``STAGE_LOADS`` and the components a stage does not train unchanged
+     by it; videos/s of each epoch (loader, batch prep and step) beside
+     phases 6/7's step-only videos/s; the gather, batch prep and step ms
+     over 21 batches (seven epochs of the cache) with cuDNN's autotuner
+     off, the CLI's setting; a profile of the same 21 batches in sequence
+     (each phase's device busy, idle and host time); the caches' fill
+     seconds and bytes; peak memory; the batch prep on the card against
+     the CPU's (train and eval, the same draws, float32, TF32 off, 1e-4);
+     the patch kernel at the CLI's shape (N=512) on a batch of the cache,
+     from random and from the policy's actions, bit for bit against the
+     plain version.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched configuration's
-results, the bench and the kernel table (each kernel's launches on every
+results, the bench, the CLI's results and the kernel table (each kernel's launches on every
 path, its times at the flagship's and the matched configuration's shapes)
 as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -97,6 +118,7 @@ as JSON lines, then as its last line
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -230,7 +252,7 @@ def check_patch_at(frames, actions, image_size, patch_size, label) -> None:
     offs = patch_offsets(actions.reshape(b * t, 2), image_size, patch_size)
     want = extract_patches_reference(frames.reshape((b * t,) + frames.shape[2:]), offs,
                                      patch_size)
-    _check_same(got, want, f"{label}, from the policy's actions")
+    _check_same(got, want, f"{label}, offsets from (B, T, 2) actions")
 
 
 def check_patch_edges(device) -> None:
@@ -1445,6 +1467,313 @@ def matched_throughput(model, device, fused: str, iters: int = 10) -> dict:
     return {"videos_per_s": vps, "phase_ms": phases, "peak_bytes": peak}
 
 
+# phase 9, the port's CLI (adafocus_torch.cli.train / evaluate), this
+# slice's main path, in-process at the flagship width of
+# configs/actnet_default.yaml from a device cache of synthetic clips: stage
+# 1, stage 2 warm-started from it, stage 3 from stage 2, then evaluate with
+# three patch policies. CLI_VIDEOS synthetic videos give 3 steps an epoch
+# at CLI_B; stages 1 and 2 run two epochs, so that the second one's
+# videos/s is taken warm. The batch prep on the card is held to the CPU's
+# at PREP_REL_TOL, float32, TF32 off: the resampling weights and products
+# are float32 sums in another order
+CLI_B = 32                   # the item-17 profile's batch (benchmarks/miniact_harness.py:99)
+CLI_VIDEOS = 96
+CLI_EPOCHS = {1: 2, 2: 2, 3: 1}
+CLI_POLICIES = ("learned", "random", "center")
+CLI_PASSES = 7               # epochs of the components' timing and profile: 21 batches
+PREP_REL_TOL = 1e-4
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _cli_args(tmp: str, *extra) -> list:
+    return ["--config", os.path.join(ROOT, "configs", "actnet_default.yaml"),
+            "run.synthetic_data=true", f"run.synthetic_videos={CLI_VIDEOS}",
+            "loader.cache=device", f"loader.batch_size={CLI_B}", *extra]
+
+
+def _run_cli(main, args: list, log_path: str):
+    """``main(args)`` with its log lines sent to ``log_path``; its tail is
+    printed if it raises."""
+    with open(log_path, "a") as f, contextlib.redirect_stdout(f):
+        try:
+            return main(args)
+        except BaseException:
+            f.flush()
+            with open(log_path) as g:
+                sys.stderr.write("".join(g.readlines()[-40:]))
+            raise
+
+
+def _same_as_checkpoint(model, tree: dict, components, label: str) -> None:
+    import torch
+
+    for comp in components:
+        src = tree["components"][comp]
+        for key, value in getattr(model, comp).state_dict().items():
+            if not torch.equal(value.cpu(), src[key]):
+                raise AssertionError(f"{label}: {comp}.{key} differs from the checkpoint")
+
+
+def check_cli_prep(cfg, loader, device) -> dict:
+    """The batch prep on the card against the CPU's on one uint8 batch of
+    the device cache (4 videos) with the same draws, train and eval, float32
+    with TF32 off."""
+    import torch
+
+    from adafocus_torch.cli.common import make_batch_prep
+    from adafocus_torch.data.transforms import draw_augment
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, dtype=torch.float32))
+    raw = next(iter(loader))
+    raw = {"frames": raw["frames"][:4], "labels": raw["labels"][:4]}
+    raw_cpu = {"frames": raw["frames"].cpu().numpy(), "labels": raw["labels"]}
+    draws = draw_augment(4, cfg.loader.canvas_size, cfg.augment,
+                         torch.Generator().manual_seed(SEED), torch.device("cpu"))
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for train in (True, False):
+        want, _, _ = make_batch_prep(cfg32, train, torch.device("cpu"))(raw_cpu, None, draws)
+        got, _, _ = make_batch_prep(cfg32, train, device)(raw, None, draws)
+        for key in ("frames", "frames_small"):
+            errs[f"{'train' if train else 'eval'} {key}"] = e = (
+                (got[key].cpu() - want[key]).abs().max() / want[key].abs().max()).item()
+            if not e <= PREP_REL_TOL:
+                raise AssertionError(f"batch prep on the card vs the CPU, {key} train={train}: "
+                                     f"{e} > {PREP_REL_TOL}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    print(f"CLI batch prep on the card vs the CPU (4 videos of the device cache, the same "
+          f"draws, float32, TF32 off): max|d|/max|cpu| {json.dumps(errs)} (limit "
+          f"{PREP_REL_TOL})", flush=True)
+    return errs
+
+
+def _cli_batches(loader):
+    """The training loader's raw batches over ``CLI_PASSES`` epochs."""
+    for epoch in range(CLI_PASSES):
+        loader.set_epoch(epoch)
+        yield from loader
+
+
+def check_cli_patch(cfg, loader, model, device) -> None:
+    """The patch kernel at the shape the CLI gives it (B=32 x T=16 = 512
+    frames, 224^2 -> 96^2, bf16: a grid plan of its own), on one batch of
+    the device cache after the CLI's batch prep, from the random actions a
+    stage-1 step draws and from the policy's greedy actions (a stage-3 step,
+    evaluate): each bit-identical to the plain version."""
+    import torch
+
+    from adafocus_torch.cli.common import batch_generator, make_batch_prep
+    from adafocus_torch.models.gfv import glance_policy_actions
+    from adafocus_torch.ops.patch import random_patch_actions
+
+    gen = batch_generator(SEED, 0, 0, device)
+    batch, _, _ = make_batch_prep(cfg, True, device)(next(iter(loader)), gen)
+    frames = batch["frames"]
+    b, t = frames.shape[:2]
+    s, p = cfg.model.image_size, cfg.model.patch_size
+    label = f"CLI B={b} T={t} {s}^2 P={p} bf16, a batch of the device cache"
+    check_patch_at(frames, random_patch_actions((b, t), gen, device), s, p,
+                   f"{label}, stage 1's random draw")
+    with torch.inference_mode(), model.autocast():
+        actions = glance_policy_actions(model, batch["frames_small"])[2]["actions"]
+    check_patch_at(frames, actions, s, p, f"{label}, the policy's greedy actions")
+
+
+def time_cli_components(cfg, loader, state, device, card: str) -> dict:
+    """Mean ms of the loader's gather (host clock to a synchronised batch),
+    of the batch prep and of the stage-1 step (CUDA events), each over
+    ``CLI_PASSES`` epochs of a fresh device-cached training loader with
+    stage 1's trained state, cuDNN's autotuner off as the CLI keeps it."""
+    import torch
+
+    from adafocus_torch.cli.common import batch_generator, make_batch_prep
+    from adafocus_torch.train.stages import make_stage_train_step
+
+    fill_s = loader.fill()
+    prep = make_batch_prep(cfg, True, device)
+    step = make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+    gather, prep_ms, step_ms = [], [], []
+    batches = _cli_batches(loader)
+    for i in range(CLI_PASSES * len(loader)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = next(batches)
+        torch.cuda.synchronize()
+        gather.append((time.perf_counter() - t0) * 1e3)
+        gen = batch_generator(SEED, 99, i, device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        batch, _, _ = prep(raw, gen)
+        ev[1].record()
+        step(batch, gen)
+        ev[2].record()
+        torch.cuda.synchronize()
+        prep_ms.append(ev[0].elapsed_time(ev[1]))
+        step_ms.append(ev[1].elapsed_time(ev[2]))
+    mean_step = sum(step_ms) / len(step_ms)
+    out = {"batches": len(step_ms), "gather_ms": sum(gather) / len(gather),
+           "prep_ms": sum(prep_ms) / len(prep_ms), "step_ms": mean_step,
+           "step_only_videos_per_s": CLI_B / (mean_step / 1e3), "fill_seconds": fill_s,
+           "cache_bytes": loader.nbytes, "host_frame_bytes": prep.host_frame_bytes}
+    print(f"CLI components, stage 1 bf16 B={CLI_B} from the device cache, mean over "
+          f"{out['batches']} batches, cuDNN's autotuner off: gather {out['gather_ms']!r} ms "
+          f"(host clock), batch prep {out['prep_ms']!r} ms, step {mean_step!r} ms "
+          f"({out['step_only_videos_per_s']!r} videos/s step only); cache fill {fill_s!r} s, "
+          f"{out['cache_bytes']} B on the card ({card})", flush=True)
+    if out["host_frame_bytes"]:
+        raise AssertionError(f"{out['host_frame_bytes']} frame bytes came from the host")
+    return out
+
+
+CLI_PHASES = ("gather", "prep", "step")
+
+
+def profile_cli_batches(cfg, loader, state, device, card: str) -> dict:
+    """``torch.profiler`` over ``CLI_PASSES`` epochs of the stage-1 loop at
+    B=32 from the device cache, in sequence, with the gather, the batch prep
+    and the step each a ``record_function`` range: each phase's device
+    window, busy, idle and host ms a batch (``port_patch_times.split_phases``)
+    and the idle share. The trace goes under ``profiles/`` beside this
+    script."""
+    from torch.profiler import record_function
+
+    from adafocus_torch.cli.common import batch_generator, make_batch_prep
+    from adafocus_torch.train.stages import make_stage_train_step
+    from port_patch_times import PROFILES, _trace, split_phases
+
+    prep = make_batch_prep(cfg, True, device)
+    step = make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+    n = CLI_PASSES * len(loader)
+
+    def sequential():
+        batches = _cli_batches(loader)
+        for i in range(n):
+            gen = batch_generator(SEED, 98, i, device)
+            with record_function("gather"):
+                raw = next(batches)
+            with record_function("prep"):
+                batch, _, _ = prep(raw, gen)
+            with record_function("step"):
+                step(batch, gen)
+
+    out = split_phases(_trace(sequential, os.path.join(PROFILES, "trace_cli_sequential.json")),
+                       n, CLI_PHASES)
+    out["batches"] = n
+    print(f"CLI loop at B={CLI_B}, profiled over {n} batches in sequence, ms a batch: "
+          + "; ".join(f"{name} window {v['window_ms']!r}, busy {v['busy_ms']!r}, idle "
+                      f"{v['idle_ms']!r}, host {v['host_ms']!r}"
+                      for name, v in out.items() if name in CLI_PHASES)
+          + f"; idle share {out['total']['idle_share']!r} ({card})", flush=True)
+    return out
+
+
+def cli_phase(device, card: str) -> dict:
+    """Phase 9: the CLI's stages 1, 2 and 3 and evaluate at the flagship
+    width, each with the launch counts set to 0 just before and read just
+    after; one patch launch a stage-1/3 step and eval batch, two a stage-2
+    step, no fused-block launch; every batch's frames from the device cache
+    (no frame byte from the host after the fill); each warm start exact for
+    the components of ``STAGE_LOADS``, and every component a stage does not
+    train unchanged by it; finite results; videos/s of each epoch (loader,
+    batch prep and step), peak memory, the caches' fill seconds and bytes."""
+    import tempfile
+
+    import torch
+
+    from adafocus_torch.cli import evaluate as cli_evaluate
+    from adafocus_torch.cli import train as cli_train
+    from adafocus_torch.cli.common import build_loader
+    from adafocus_torch.config import load_config
+    from adafocus_torch.train import checkpoint as ckpt
+    from adafocus_torch.train.optim import stage_trainable
+
+    out = {"stages": {}, "evaluate": {}}
+    n_val = -(-CLI_VIDEOS // CLI_B)
+    # the CLI keeps torch's default, cuDNN's autotuner off; phase 5 turned
+    # it on for this process
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "cli.log")
+        prev = None
+        for stage, epochs in CLI_EPOCHS.items():
+            args = _cli_args(tmp, f"run.stage={stage}", f"run.epochs={epochs}",
+                             f"run.ckpt_dir={tmp}/s{stage}",
+                             *([f"run.warm_start={prev}"] if prev else []))
+            tree = None
+            if prev:
+                # the warm start main() makes, checked before it trains
+                cfg = load_config(args[1], args[2:])
+                tree = ckpt.load_checkpoint(prev, best=True) or ckpt.load_checkpoint(prev)
+                with open(log, "a") as f, contextlib.redirect_stdout(f):
+                    state, _, _ = cli_train.build_state(cfg, CLI_VIDEOS // CLI_B, device)
+                loaded = [c for c in ckpt.STAGE_LOADS[stage] if c in tree["components"]]
+                _same_as_checkpoint(state.model, tree, loaded, f"stage {stage} warm start")
+                del state
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            _launch_counts(reset=True)
+            res = _run_cli(cli_train.main, args, log)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            steps = sum(e["steps"] for e in res["epochs"])
+            want = (2 if stage == 2 else 1) * steps + n_val * epochs
+            if launches != {"extract_patches": want, "fused_inverted_residual": 0,
+                            "fused_bottleneck": 0}:
+                raise AssertionError(f"CLI stage {stage}: launches {launches}, want {want} patch "
+                                     f"launches ({steps} steps, {n_val * epochs} eval batches)")
+            if res["host_frame_bytes"] or set(res["caches"]) != {"train", "val"}:
+                raise AssertionError(f"CLI stage {stage}: frames from the host "
+                                     f"{res['host_frame_bytes']} B, caches {res['caches']}")
+            if not math.isfinite(res["best_acc"]):
+                raise AssertionError(f"CLI stage {stage}: best_acc {res['best_acc']}")
+            model = res["state"].model
+            if tree is not None:
+                frozen = [c for c, label in stage_trainable(stage).items()
+                          if label == "frozen" and c in tree["components"]]
+                _same_as_checkpoint(model, tree, frozen, f"stage {stage}, frozen")
+            peak = torch.cuda.max_memory_allocated(device)
+            out["stages"][stage] = {
+                "epochs": res["epochs"], "launches": launches, "best_acc": res["best_acc"],
+                "caches": res["caches"], "peak_bytes": peak}
+            print(f"CLI train stage {stage} bf16 B={CLI_B}, {CLI_VIDEOS} synthetic videos from "
+                  f"the device cache: videos/s by epoch (loader, batch prep and step) "
+                  f"{[e['videos_per_s'] for e in res['epochs']]!r}; patch launches "
+                  f"{launches['extract_patches']} ({steps} steps, {n_val * epochs} eval "
+                  f"batches); caches {json.dumps(res['caches'])}; peak memory {peak} B "
+                  f"({peak / 2**30:.2f} GiB); best acc {res['best_acc']!r} ({card})",
+                  flush=True)
+            if stage == 1:
+                cfg1 = load_config(args[1], args[2:])
+                loader = build_loader(cfg1, True, device)
+                out["components"] = time_cli_components(cfg1, loader, res["state"], device, card)
+                out["profile"] = profile_cli_batches(cfg1, loader, res["state"], device, card)
+                out["prep"] = check_cli_prep(cfg1, loader, device)
+                check_cli_patch(cfg1, loader, res["state"].model, device)
+                del loader
+            del res, model
+            torch.cuda.empty_cache()
+            prev = f"{tmp}/s{stage}"
+        for policy in CLI_POLICIES:
+            args = _cli_args(tmp, f"run.resume={prev}", f"run.ckpt_dir={tmp}/ev_{policy}",
+                             f"run.eval_policy={policy}")
+            _launch_counts(reset=True)
+            res = _run_cli(cli_evaluate.main, args, log)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            if launches["extract_patches"] != n_val or \
+                    not all(math.isfinite(v) for v in res.values()) or \
+                    not 0.0 <= res["mAP"] <= 1.0:
+                raise AssertionError(f"CLI evaluate {policy}: {res}, launches {launches}")
+            out["evaluate"][policy] = {"results": res, "launches": launches}
+        print(f"CLI evaluate bf16 B={CLI_B} of stage 3: " + "; ".join(
+            f"{p} {json.dumps(v['results'])} ({v['launches']['extract_patches']} patch launches)"
+            for p, v in out["evaluate"].items()) + f" ({card})", flush=True)
+    torch.backends.cudnn.benchmark = autotune
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1547,11 +1876,27 @@ def main() -> int:
 
     bench = port_bench.bench(device)
     done("phase 8")
-    # each kernel's count from the run of this slice's main path, the
-    # matched sth-sth forward (the patch kernel on the cuDNN path, the
-    # blocks on the fused path); the counts of the other paths beside them
+    cli = cli_phase(device, card)
+    step_only = {1: train["videos_per_s"], 2: stage2["videos_per_s"]}
+    for stage in (1, 2):
+        print(f"CLI stage {stage} at B={CLI_B}, videos/s of its warm epoch (loader, batch prep "
+              f"and step): {cli['stages'][stage]['epochs'][-1]['videos_per_s']!r}; phase "
+              f"{5 + stage}'s step only at B={TRAIN_B}: {step_only[stage]!r}"
+              + (f"; step only at B={CLI_B} from the CLI's batches: "
+                 f"{cli['components']['step_only_videos_per_s']!r}" if stage == 1 else "")
+              + f" ({card})", flush=True)
+    done("phase 9")
+    # each kernel's count from the run of this slice's main path, the CLI's
+    # stage 1 (the patch kernel; the CLI runs the cuDNN path), and for the
+    # blocks the matched sth-sth forward's fused path; the counts of the
+    # other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
-    paths = {"matched sth-sth inference, cuDNN path, 1 forward": matched["launches"]["auto"],
+    paths = {**{f"CLI train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps and "
+                f"{-(-CLI_VIDEOS // CLI_B) * len(v['epochs'])} eval batches": v["launches"]
+                for st, v in cli["stages"].items()},
+             **{f"CLI evaluate {p}, {-(-CLI_VIDEOS // CLI_B)} batches": v["launches"]
+                for p, v in cli["evaluate"].items()},
+             "matched sth-sth inference, cuDNN path, 1 forward": matched["launches"]["auto"],
              "matched sth-sth inference, fused path, 1 forward": matched["launches"]["on"],
              "flagship inference, cuDNN path, 1 forward": launches["auto"],
              "flagship inference, fused path, 1 forward": launches["on"],
@@ -1560,7 +1905,7 @@ def main() -> int:
                 for k, v in train_launches.items()},
              f"train stage 2, {n_steps} steps": stage2["launches"]}
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
-    rows[0]["launches"] = matched["launches"]["auto"]["extract_patches"]
+    rows[0]["launches"] = cli["stages"][1]["launches"]["extract_patches"]
     rows[0]["matched"] = {
         "ms": patch_matched["us"] / 1e3, "plain_ms": patch_matched["plain_us"] / 1e3,
         "bound_ms": patch_matched["bound_us"] / 1e3, "bound_by": "bytes",
@@ -1581,6 +1926,7 @@ def main() -> int:
     print(json.dumps({"train_stage2": stage2}), flush=True)
     print(json.dumps({"matched": matched}), flush=True)
     print(json.dumps({"port_bench": bench}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

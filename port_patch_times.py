@@ -228,7 +228,8 @@ def split_phases(events: list, n_runs: int, phases: tuple = PHASES) -> dict:
         owner.append(prev)
     out = {name: {"window_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0, "host_ms": 0.0}
            for name in phases}
-    out["extract"].update(patch_kernel_ms=0.0, other_kernels_ms=0.0, other_kernels=[])
+    if "extract" in out:
+        out["extract"].update(patch_kernel_ms=0.0, other_kernels_ms=0.0, other_kernels=[])
     last_end = None
     for i, (a0, a1, name) in enumerate(ranges):
         mine = [e for e, o in zip(dev, owner) if o == i]

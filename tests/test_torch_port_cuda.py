@@ -19,6 +19,11 @@ the patch kernel twice, leaves everything but the policy bit-identical and
 moves every policy parameter. The policy's sampler draws each class from a
 CUDA generator at its softmax frequency, within 5 sigma.
 
+The data layer: the device cache's batches are CUDA tensors equal to the
+host cache's; prefetching takes an unindexed CUDA device; the batch prep on the card (augmentation, views, glance
+downsample) matches the CPU's on the same uint8 batch and draws within
+max|d| / max|cpu| <= 1e-4, float32 with TF32 off.
+
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
 whose rounding flips moves by one bf16 ulp). Their cases cover the bf16
@@ -214,6 +219,80 @@ def test_cuda_stage2_step_trains_only_the_policy():
     for key, value in before.items():
         moved = not torch.equal(value, after[key])
         assert moved == key.startswith("policy."), key
+
+
+def _synthetic_loader(cache: str, device=None):
+    from adafocus_torch.data import cache as tcache
+    from adafocus_torch.data import pipeline as tpipe
+    from adafocus_torch.data.records import VideoRecord
+
+    records = [VideoRecord(f"v{i}", 6, (i % 3, -1, -1)) for i in range(8)]
+    cfg = tpipe.LoaderConfig(num_segments=4, canvas_size=40, batch_size=4, seed=3,
+                             num_workers=2)
+    return tcache.maybe_cache(tpipe.VideoLoader(records, tpipe.SyntheticVideoSource(), cfg),
+                              cache, device)
+
+
+@pytest.mark.cuda
+def test_cuda_device_cache_gathers_on_the_card():
+    """The device cache's batches are CUDA tensors equal to the host
+    cache's, and only its fill copies frames to the card."""
+    _needs_gpu()
+    host, card = _synthetic_loader("host"), _synthetic_loader("device", torch.device("cuda"))
+    card.fill()
+    assert card._frames.is_cuda and card.nbytes == 8 * 6 * 40 * 40 * 3
+    for epoch in (0, 1):
+        host.set_epoch(epoch)
+        card.set_epoch(epoch)
+        for a, b in zip(host, card):
+            assert b["frames"].is_cuda and b["frames"].dtype == torch.uint8
+            assert torch.equal(b["frames"].cpu(), torch.from_numpy(a["frames"]))
+            assert (a["labels"] == b["labels"]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_on_an_unindexed_device():
+    """The prefetch thread takes the card as ``torch.device("cuda")`` (no
+    index) and its batches are the sequential ones."""
+    _needs_gpu()
+    from adafocus_torch.data.prefetch import prefetch_to_device
+
+    def prep(raw, i):
+        return torch.full((4,), float(raw), device="cuda") * (i + 1)
+
+    got = list(prefetch_to_device(range(5), prep, device=torch.device("cuda")))
+    assert [float(t[0]) for t in got] == [float(k * (k + 1)) for k in range(5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False], ids=["train", "eval"])
+def test_cuda_batch_prep_matches_cpu(train):
+    """The batch prep on the card against the CPU's on one uint8 batch with
+    the same draws, float32 with TF32 off: max|d| / max|cpu| <= 1e-4."""
+    _needs_gpu()
+    from adafocus_torch import config as tconfig
+    from adafocus_torch.cli import common as tcommon
+    from adafocus_torch.data import transforms as tt
+
+    cfg = tconfig.load_config("configs/actnet_default.yaml", [
+        "model.dtype=float32", "model.glance_size=112", "augment.eval_crops=oversample"])
+    raw = {"frames": torch.randint(0, 256, (3, 16, 256, 256, 3), dtype=torch.uint8,
+                                   generator=torch.Generator().manual_seed(0)).numpy(),
+           "labels": torch.tensor([[1, -1, -1], [2, 5, -1], [0, -1, -1]]).numpy()}
+    draws = tt.draw_augment(3, 256, cfg.augment, torch.Generator().manual_seed(1),
+                            torch.device("cpu"))
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        want, _, _ = tcommon.make_batch_prep(cfg, train, torch.device("cpu"))(raw, None, draws)
+        prep = tcommon.make_batch_prep(cfg, train, torch.device("cuda"))
+        got, _, _ = prep(raw, None, draws)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    for key in ("frames", "frames_small"):
+        assert got[key].is_cuda and got[key].shape == want[key].shape
+        assert _rel_err(got[key].cpu(), want[key]) <= 1e-4, key
+    assert torch.equal(got["labels"].cpu(), want["labels"])
 
 
 @pytest.mark.cuda

@@ -103,7 +103,13 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    banned = {"jax", "jaxlib", "flax", "optax", "adafocus_tpu"}
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "adafocus_tpu"}
+    checked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for sub in ("adafocus_torch/data/transforms.py", "adafocus_torch/data/cache.py",
+                "adafocus_torch/cli/train.py", "adafocus_torch/cli/evaluate.py",
+                "adafocus_torch/config.py", "adafocus_torch/train/checkpoint.py",
+                "adafocus_torch/utils/visualize.py"):
+        assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
