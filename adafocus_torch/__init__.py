@@ -14,9 +14,11 @@ the supervised stages 0, 1 and 3, the stage-2 PPO step on the sampled
 policy with the random-patch lookahead baseline (``ppo.core``), and the
 eval step; ``train.optim``). The deployment forward of the sth-sth family
 (``models.gfv_sthsth.inference_sthsth``: temporal-shift backbones, one
-continuous action per video division, sum consensus), not yet its
-training. ``benchmark`` times the forwards (``port_bench.py``). The
-ActivityNet family trains and evaluates from the port's own CLI
+continuous action per video division, sum consensus) and its training
+(``train.stages_sthsth``: stages 1, 2 and 3, the TSN optimizer groups,
+partial BatchNorm, per-block recomputation). ``benchmark`` times the
+forwards (``port_bench.py``). Both families train and evaluate from the
+port's own CLI
 (``python -m adafocus_torch.cli.train`` / ``cli.evaluate``, ``config``)
 over its data layer (``data``: the loaders, the augmentation on the card,
 the dataset cache) and checkpoints (``train.checkpoint``).

@@ -96,10 +96,13 @@ class Logger:
 
 
 def check_family(cfg: ExperimentConfig) -> None:
-    if cfg.run.family != "actnet":
-        raise NotImplementedError(
-            f"run.family={cfg.run.family!r}: the CLI serves the ActivityNet family only; "
-            "sth-sth training and its CLI are ROADMAP item 10")
+    """``run.family`` names a family of the port, and the model's head is
+    that family's (the sth-sth family's is ``model.classifier=consensus``)."""
+    if cfg.run.family not in ("actnet", "sthsth"):
+        raise ValueError(f"unknown run.family {cfg.run.family!r}: 'actnet' or 'sthsth'")
+    if (cfg.run.family == "sthsth") != cfg.model.sthsth:
+        raise ValueError(f"run.family={cfg.run.family!r} with model.classifier="
+                         f"{cfg.model.classifier!r}: the sth-sth family's head is 'consensus'")
 
 
 def build_model(cfg: ExperimentConfig, device: torch.device):
@@ -162,10 +165,17 @@ def make_batch_prep(cfg: ExperimentConfig, train: bool, device: torch.device) ->
     sampling and test-time views into the batch. ``run.host_frame_bytes``
     counts the frame bytes copied from the host (0 while a device cache
     serves the batches).
+
+    The ActivityNet family's one stream feeds both the glancer (downsampled)
+    and the focuser. The sth-sth family's batches are dual-rate: the glancer
+    sees ``raw["frames"]`` (Tg frames) downsampled, the focuser
+    ``raw["frames_focuser"]`` (Tf frames), each stream augmented by its own
+    draw, the focuser's after the glancer's (``draws`` is then the pair).
     """
     device = default_device(device)
     model_cfg = cfg.model
     aug = cfg.augment
+    dual = cfg.run.family == "sthsth"
     n_views = 1 if train else num_eval_views(aug)
 
     def expand_views(frames):
@@ -191,25 +201,34 @@ def make_batch_prep(cfg: ExperimentConfig, train: bool, device: torch.device) ->
             run.host_frame_bytes += frames.numel() * frames.element_size()
         return frames.to(device)
 
+    def augment(frames, generator, draws):
+        if train:
+            return augment_train(frames, generator, aug, draws)
+        if n_views > 1:
+            return expand_views(frames)
+        return augment_eval(frames, aug)
+
     def run(raw: dict, generator: Optional[torch.Generator] = None, draws=None):
         labels = np.asarray(raw["labels"])
         labels_train = labels[:, 0] if labels.ndim == 2 else labels
         frames = on_device(raw["frames"])
+        focus_frames = on_device(raw["frames_focuser"]) if dual else frames
+        draws_g, draws_f = draws if dual and draws is not None else (draws, None)
         k = 1
         if not train:
             frames, k = split_clips(frames, model_cfg.num_frames)
+            if dual:
+                focus_frames, kf = split_clips(focus_frames, model_cfg.t_focuser)
+                if kf != k:
+                    raise ValueError(f"clip counts differ between streams: {k} vs {kf}")
             k *= n_views  # crop views consensus-average like clips
             if k > 1:
                 labels_train = np.repeat(labels_train, k)
-        if train:
-            big = augment_train(frames, generator, aug, draws)
-        elif n_views > 1:
-            big = expand_views(frames)
-        else:
-            big = augment_eval(frames, aug)
+        big = augment(frames, generator, draws_g)
         small = glance_downsample(big, model_cfg.glance_size)
+        focus = augment(focus_frames, generator, draws_f) if dual else big
         batch = {
-            "frames": big.to(model_cfg.dtype),
+            "frames": focus.to(model_cfg.dtype),
             "frames_small": small.to(model_cfg.dtype),
             "labels": to_device(labels_train.astype(np.int64), device),
         }

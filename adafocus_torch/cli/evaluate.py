@@ -8,9 +8,12 @@ adafocus_tpu/cli/evaluate.py): load a checkpoint, run the deployment forward
 ``run.eval_policy`` overrides the patch policy: 'random' (uniform patches
 from each batch's generator), 'center', or 'oracle' (the ground-truth
 target tracks of ``run.oracle_gt``, a miniact ``gt.npz``); these bracket the
-learned policy's accuracy. The model keeps float32 parameters and computes
-in ``model.dtype``, as a training run's does. On the GPU unless
-``run.platform=cpu``. ``run.quantize`` (int8 serving) is ROADMAP item 14.
+learned policy's accuracy. ``run.family=sthsth`` evaluates the sth-sth
+family (``inference_sthsth``; one action a video division, an oracle
+division's the mean of its frames' targets where the target is present).
+The model keeps float32 parameters and computes in ``model.dtype``, as a
+training run's does. On the GPU unless ``run.platform=cpu``.
+``run.quantize`` (int8 serving) is ROADMAP item 14.
 """
 
 from __future__ import annotations
@@ -34,10 +37,14 @@ from adafocus_torch.cli.train import validate
 from adafocus_torch.config import echo, load_config
 from adafocus_torch.data.transforms import to_device
 from adafocus_torch.models.gfv import GFV, glance_policy_actions, inference_with_actions
+from adafocus_torch.models.gfv_sthsth import (
+    actions_per_frame, glance_division_rollout, inference_sthsth_with_actions,
+)
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import patch_offsets, random_patch_actions
 from adafocus_torch.train import checkpoint as ckpt
 from adafocus_torch.train.stages import make_eval_step
+from adafocus_torch.train.stages_sthsth import make_sthsth_eval_step
 
 
 def visualize_policy_patches(model, loader, prep, cfg, path, generator) -> None:
@@ -48,8 +55,11 @@ def visualize_policy_patches(model, loader, prep, cfg, path, generator) -> None:
     batch, _, _ = prep(raw, generator)
     mc = cfg.model
     with torch.no_grad(), model.autocast():
-        _, _, roll = glance_policy_actions(model, batch["frames_small"])
-    actions = roll["actions"]
+        if mc.sthsth:
+            _, _, roll = glance_division_rollout(model, batch["frames_small"])
+            actions = actions_per_frame(roll["actions"], batch["frames"].shape[1])
+        else:
+            actions = glance_policy_actions(model, batch["frames_small"])[2]["actions"]
     n = min(cfg.run.visualize_patches, actions.shape[0])
     offs = patch_offsets(actions[:n], mc.image_size, mc.patch_size).cpu().numpy()
     frames = batch["frames"][:n].float().cpu().numpy()
@@ -69,23 +79,27 @@ def make_eval_step_q8(*args, **kwargs):
 def make_eval_step_forced(model: GFV, mode: str):
     """Eval step with the patch policy overridden: 'random' or 'center'
     patches, or 'oracle' patches from the batch's ``actions`` (attached by
-    the prep wrapper from the ground-truth tracks). ``step(batch,
-    generator) -> (logits, {"top1", "top5"})``."""
+    the prep wrapper from the ground-truth tracks); one action a frame, or
+    a video division in the sth-sth family. ``step(batch, generator) ->
+    (logits, {"top1", "top5"})``."""
     if mode not in ("random", "center", "oracle"):
         raise ValueError(f"unknown forced policy {mode!r}")
+    sthsth = model.cfg.sthsth
 
     def step(batch, generator):
         small = batch["frames_small"]
-        b, n = small.shape[:2]
+        b = small.shape[0]
+        n = model.cfg.video_div if sthsth else small.shape[1]
         if mode == "random":
             actions = random_patch_actions((b, n), generator, model.device)
         elif mode == "center":
             actions = torch.full((b, n, 2), 0.5, device=model.device)
         else:
             actions = batch["actions"]
-        logits = inference_with_actions(model, batch["frames"], small, actions,
-                                        device=model.device)
-        top1, top5 = topk_accuracy(logits[:, -1].float(), batch["labels"])
+        forward = inference_sthsth_with_actions if sthsth else inference_with_actions
+        logits = forward(model, batch["frames"], small, actions, device=model.device)
+        final = logits if sthsth else logits[:, -1]
+        top1, top5 = topk_accuracy(final.float(), batch["labels"])
         return logits, {"top1": top1, "top5": top5}
 
     return step
@@ -94,7 +108,9 @@ def make_eval_step_forced(model: GFV, mode: str):
 def build_oracle_table(cfg, loader) -> np.ndarray:
     """(num_records, T, 2) ground-truth patch actions aligned with the val
     loader's record order, from the dataset's gt.npz (``run.oracle_gt``),
-    at the frames that val sampling (segment centers) picks."""
+    at the focuser frames that val sampling (segment centers) picks. For a
+    consensus-head model (num_records, video_div, 2): each division's the
+    mean of its frames' targets where present, else the center."""
     from adafocus_torch.data.miniact import load_gt, oracle_actions
     from adafocus_torch.data.sampling import sample_segment_indices
 
@@ -105,12 +121,22 @@ def build_oracle_table(cfg, loader) -> np.ndarray:
         raise SystemExit("eval_policy=oracle does not support multi-clip sampling")
     mc = cfg.model
     t = mc.t_focuser
-    out = np.empty((len(loader.records), t, 2), np.float32)
+    n = len(loader.records)
+    out = np.empty((n, t, 2), np.float32)
+    pres = np.empty((n, t), bool)
     for i, rec in enumerate(loader.records):
         r = row[rec.path]
         idx = sample_segment_indices(rec.num_frames, t, mode="val") - 1
-        out[i] = oracle_actions(centers[r][idx], presence[r][idx], lcfg.canvas_size,
+        pres[i] = presence[r][idx]
+        out[i] = oracle_actions(centers[r][idx], pres[i], lcfg.canvas_size,
                                 mc.image_size, mc.patch_size)
+    if mc.sthsth:
+        d = mc.video_div
+        pres = pres.reshape(n, d, t // d, 1)
+        div = out.reshape(n, d, t // d, 2)
+        w = np.maximum(pres.sum(axis=2), 1e-6)
+        out = np.where(pres.any(axis=2), (div * pres).sum(axis=2) / w,
+                       np.float32(0.5)).astype(np.float32)
     return out
 
 
@@ -167,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if policy_mode != "learned":
         eval_step = make_eval_step_forced(model, policy_mode)
     else:
-        learned = make_eval_step(model)
+        learned = make_sthsth_eval_step(model) if cfg.run.family == "sthsth" \
+            else make_eval_step(model)
 
         def eval_step(batch, generator):
             return learned(batch)

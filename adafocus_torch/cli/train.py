@@ -1,9 +1,11 @@
 """Training entry point of the port (counterpart of adafocus_tpu/cli/train.py):
-the ActivityNet family's four stages, one entry point.
+every stage of both families, one entry point.
 
     python -m adafocus_torch.cli.train [--config conf.yaml] [section.key=value ...]
 
-Stage selection is ``run.stage`` (0..3). The run is on the GPU unless
+Stage selection is ``run.stage`` (0..3), the family ``run.family``
+('actnet', or 'sthsth' with ``model.classifier=consensus``: stages 1..3,
+dual-rate batches; ``configs/sthsth_default.yaml``). The run is on the GPU unless
 ``run.platform=cpu``; without a GPU and without that flag it raises. Each
 epoch streams the training loader through the batch prep on the device
 (prefetched on a thread), trains, then evaluates and writes the
@@ -12,8 +14,7 @@ epoch streams the training loader through the batch prep on the device
 (``train/checkpoint.py STAGE_LOADS``), ``run.resume`` continues a run.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``run.family=sthsth`` (10), ``model.frame_budget>0`` (11), several devices
-or hosts (12).
+``model.frame_budget>0`` (11), several devices or hosts (12).
 """
 
 from __future__ import annotations
@@ -48,13 +49,25 @@ from adafocus_torch.train.stages import (
     make_stage2_step,
     make_stage_train_step,
 )
+from adafocus_torch.train.stages_sthsth import (
+    make_sthsth_eval_step,
+    make_sthsth_stage2_step,
+    make_sthsth_train_step,
+)
 
 
 def build_steps(cfg: ExperimentConfig, state) -> tuple:
-    """(train_step, eval_step) of the configured stage; both take
+    """(train_step, eval_step) of the configured family and stage; both take
     ``(batch, generator)``."""
     stage = cfg.run.stage
     model = state.model
+    if cfg.run.family == "sthsth":
+        if stage == 2:
+            train = make_sthsth_stage2_step(model, state.ppo)
+        else:
+            train = make_sthsth_train_step(model, stage, state.optimizer, state.scheduler)
+        eval_step = make_sthsth_eval_step(model)
+        return train, lambda batch, generator: eval_step(batch)
     if stage == 2:
         train = make_stage2_step(model, state.ppo)
     else:

@@ -33,8 +33,6 @@ UNPORTED = {
     ("model", "frame_budget"): (0, 11),
     ("model", "plus_rl"): (False, 11),
     ("model", "selector_hidden"): (256, 11),
-    ("model", "remat"): (False, 10),
-    ("model", "partial_bn"): (False, 10),
 }
 
 
@@ -43,7 +41,7 @@ class RunConfig:
     """Run-level knobs (the reference's trainer flags); the JAX package's
     fields, so that its YAML files and override lines load unchanged."""
 
-    family: str = "actnet"        # 'actnet' | 'sthsth' (training: item 10)
+    family: str = "actnet"        # 'actnet' | 'sthsth'
     stage: int = 1                # 0..3; eval uses the eval entry
     dataset: str = "actnet"
     data_root: str = ""

@@ -13,11 +13,10 @@ per-frame FC over focuser features, averaged over time by the caller.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from adafocus_torch.models.gru import GRUCell
 
@@ -60,9 +59,21 @@ class ConsensusHead(nn.Module):
         self.dropout_rate = dropout_rate
         self.fc = nn.Linear(in_dim, num_classes)
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
-        """The dropout is the identity in eval mode."""
-        return self.fc(F.dropout(features, self.dropout_rate, self.training))
+    def forward(self, features: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The dropout is the identity in eval mode. In train mode it is
+        flax's, ``where(keep, x / (1 - rate), 0)``: ``keep``, the boolean
+        mask of kept units (the features' shape), is drawn from
+        ``generator`` (on the features' device) unless given; one of the two
+        is required."""
+        if self.training and self.dropout_rate > 0:
+            if keep is None:
+                if generator is None:
+                    raise ValueError("train-mode dropout needs a keep mask or a generator")
+                keep = torch.rand(features.shape, generator=generator,
+                                  device=features.device) < 1.0 - self.dropout_rate
+            features = torch.where(keep, features / (1.0 - self.dropout_rate), 0.0)
+        return self.fc(features)
 
 
 def avg_consensus(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:

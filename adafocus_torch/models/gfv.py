@@ -57,8 +57,8 @@ Device = Optional[Union[str, torch.device]]
 @dataclasses.dataclass(frozen=True)
 class GFVConfig:
     """Static model configuration, the fields of the JAX ``GFVConfig`` that
-    the ActivityNet and sth-sth deployment forwards read. Fields of the
-    families not ported yet exist so that setting them fails loudly."""
+    the port's two families read. Fields of the parts not ported yet exist
+    so that setting them fails loudly."""
 
     num_classes: int = 200
     num_frames: int = 16          # T, the glancer's frames
@@ -79,20 +79,24 @@ class GFVConfig:
     video_div: int = 1            # sth-sth: one action per division
     with_glancer: bool = True     # sth-sth: add the glancer logits' consensus
     dropout: float = 0.5          # sth-sth local head's dropout
+    partial_bn: bool = False      # TSM partial BatchNorm on the focuser (training)
+    remat: bool = False           # per-block recomputation of both backbones
     # not ported yet: each must keep its default
     policy_conv: bool = True
     frame_budget: int = 0
 
     def __post_init__(self):
+        # field: (set off its default, the ROADMAP item that ports it)
         unported = {
-            "classifier": self.classifier not in ("gru", "consensus"),
-            "policy_conv": not self.policy_conv,
-            "frame_budget": self.frame_budget > 0,
+            "classifier": (self.classifier not in ("gru", "consensus"), 10),
+            "policy_conv": (not self.policy_conv, 10),
+            "frame_budget": (self.frame_budget > 0, 11),
         }
-        for name, is_set in unported.items():
+        for name, (is_set, item) in unported.items():
             if is_set:
                 raise NotImplementedError(
-                    f"GFVConfig.{name}={getattr(self, name)!r} is not ported yet"
+                    f"GFVConfig.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(ROADMAP item {item})"
                 )
 
     @property
@@ -103,14 +107,6 @@ class GFVConfig:
     def sthsth(self) -> bool:
         """The sth-sth family: the consensus head over the division rollout."""
         return self.classifier == "consensus"
-
-    @property
-    def serving_only(self) -> bool:
-        """Whether the configuration uses a part whose training is not ported
-        yet (TSM, the consensus head, the continuous policy, the BatchNorm
-        encoder, video divisions, dual-rate frames)."""
-        return (self.sthsth or self.tsm or self.continuous_policy or self.policy_bn
-                or self.video_div > 1 or self.t_focuser != self.num_frames)
 
     @property
     def glance_dim(self) -> int:
@@ -177,9 +173,11 @@ class GFV(nn.Module):
         self.cfg = cfg
         self.param_dtype = cfg.dtype if param_dtype is None else param_dtype
         self.glancer = MobileNetV2(num_classes=cfg.num_classes,
-                                   n_frames=cfg.num_frames if cfg.tsm else 0)
+                                   n_frames=cfg.num_frames if cfg.tsm else 0,
+                                   remat=cfg.remat)
         self.focuser = resnet50(num_classes=cfg.num_classes,
-                                n_frames=cfg.t_focuser if cfg.tsm else 0)
+                                n_frames=cfg.t_focuser if cfg.tsm else 0,
+                                partial_bn=cfg.partial_bn, remat=cfg.remat)
         g = cfg.glance_map_size
         # the sth-sth policy sees a division's maps channel-stacked
         policy_in = cfg.glance_dim * (cfg.num_frames // cfg.video_div if cfg.sthsth else 1)
@@ -187,6 +185,7 @@ class GFV(nn.Module):
             policy_in, (g, g), action_dim=cfg.action_dim,
             hidden_dim=cfg.policy_hidden, encoder_channels=cfg.policy_channels,
             continuous=cfg.continuous_policy, encoder_bn=cfg.policy_bn,
+            action_std=cfg.action_std,
         )
         if cfg.sthsth:
             self.classifier = ConsensusHead(cfg.focus_dim, cfg.num_classes, cfg.dropout)
@@ -261,10 +260,13 @@ class GFV(nn.Module):
                        ) -> Dict[str, torch.Tensor]:
         """fmap (B, T, gh, gw, C) -> actions (B, T, 2) float32 in [0, 1]^2,
         action_idx, logprob and value (B, T); mode 'greedy' or 'sample'
-        (drawn from ``generator``)."""
+        (drawn from ``generator``). The policy runs in eval mode (its
+        BatchNorm on running statistics)."""
+        _set_mode(self.policy, False)
         _, actor_out, value = self.policy.rollout_states(fmap.transpose(0, 1))
         actions, idx, logprob = sample_rollout(actor_out, mode, self.cfg.action_dim,
-                                               generator, self.cfg.continuous_policy)
+                                               generator, self.cfg.continuous_policy,
+                                               self.cfg.action_std)
         return {
             "actions": actions.transpose(0, 1).float(),
             "action_idx": idx.transpose(0, 1),
@@ -279,13 +281,17 @@ class GFV(nn.Module):
         seeing the division's maps channel-stacked in the JAX package's order
         (frame-major, ``jnp.moveaxis(..., 2, 4)``). fmap (B, Tg, gh, gw, C)
         -> the dict of ``policy_rollout`` with time axis ``video_div``."""
+        return self.policy_rollout(self.division_maps(fmap), mode, generator)
+
+    def division_maps(self, fmap: torch.Tensor) -> torch.Tensor:
+        """fmap (B, Tg, gh, gw, C) -> each division's maps channel-stacked,
+        (B, video_div, gh, gw, (Tg / video_div) * C), the policy's input."""
         b, tg, gh, gw, c = fmap.shape
         d = self.cfg.video_div
         if tg % d:
             raise ValueError(f"num_frames {tg} not divisible by video_div {d}")
         stacked = fmap.reshape(b, d, tg // d, gh, gw, c).movedim(2, 4)
-        return self.policy_rollout(stacked.reshape(b, d, gh, gw, (tg // d) * c),
-                                   mode, generator)
+        return stacked.reshape(b, d, gh, gw, (tg // d) * c)
 
     # ---- phase 3: focus + classify ---------------------------------------
 
@@ -300,12 +306,16 @@ class GFV(nn.Module):
         _set_mode(self.focuser, train)
         return self.focuser(patches.to(self.cfg.dtype).permute(0, 3, 1, 2))
 
-    def classify_frame_logits(self, features: torch.Tensor, train: bool = False
+    def classify_frame_logits(self, features: torch.Tensor, train: bool = False,
+                              keep: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None
                               ) -> torch.Tensor:
         """The sth-sth head: focuser features (B, T, 2048) -> per-frame local
-        logits (B, T, classes); its dropout active when ``train``."""
+        logits (B, T, classes); its dropout active when ``train``, its mask
+        ``keep`` (B, T, 2048) or drawn from ``generator``
+        (``ConsensusHead``)."""
         _set_mode(self.classifier, train)
-        return self.classifier(features.to(self.cfg.dtype))
+        return self.classifier(features.to(self.cfg.dtype), keep, generator)
 
     def classify_seq(self, fused: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> per-step logits (B, T, classes)."""

@@ -13,8 +13,11 @@ prediction is the average consensus of the local logits plus, with
 As in the JAX package, the focuser runs once over all Tf patches, where the
 original model re-ran it over the patches accumulated at every division.
 Frames are the port's unpadded (B, Tf, S, S, 3); the JAX package's lane
-padding is its TPU kernel's layout and is not carried over. Training of
-this family is not ported yet.
+padding is its TPU kernel's layout and is not carried over.
+
+Training composes the same phases (train/stages_sthsth.py):
+``forward_random_sthsth`` is stage 1's forward, and
+``divisional_confidences`` gives stage 2's per-division rewards.
 """
 
 from __future__ import annotations
@@ -22,12 +25,14 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.nn import functional as F
 
 from adafocus_torch.models.classifiers import avg_consensus
 from adafocus_torch.models.fused_inference import (
     fused_enabled, fused_focus, fused_glance_logits,
 )
 from adafocus_torch.models.gfv import GFV, Device, _on_model_device, extract_for_frames
+from adafocus_torch.ops.patch import random_patch_actions
 
 
 def actions_per_frame(actions_div: torch.Tensor, t_focuser: int) -> torch.Tensor:
@@ -53,11 +58,15 @@ def glance_logits(model: GFV, frames_small: torch.Tensor
     return fmap, model.glancer.classify(pooled)
 
 
-def local_frame_logits(model: GFV, patches: torch.Tensor, b: int) -> torch.Tensor:
+def local_frame_logits(model: GFV, patches: torch.Tensor, b: int, train: bool = False,
+                       keep: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """patches (B*Tf, P, P, 3) -> per-frame local logits (B, Tf, classes):
-    focuser features, then the dropout + FC head, eval mode."""
-    feats = model.focus(patches)
-    return model.classify_frame_logits(feats.reshape(b, -1, feats.shape[-1]))
+    focuser features, then the dropout + FC head, both in train mode when
+    ``train`` (the dropout's mask ``keep`` or drawn from ``generator``)."""
+    feats = model.focus(patches, train)
+    return model.classify_frame_logits(feats.reshape(b, -1, feats.shape[-1]), train, keep,
+                                       generator)
 
 
 def glance_division_rollout(model: GFV, frames_small: torch.Tensor, mode: str = "greedy",
@@ -132,3 +141,60 @@ def inference_sthsth_with_actions(model: GFV, frames: torch.Tensor,
     with model.autocast():
         _, global_logits = glance_logits(model, frames_small)
         return _focus_and_consensus(model, frames, global_logits, actions_div)
+
+
+def forward_random_sthsth(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
+                          generator: Optional[torch.Generator], train: bool = True,
+                          actions: Optional[torch.Tensor] = None,
+                          keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The stage-1 forward on random patches: the frozen TSM glance (eval
+    mode, no autograd), one uniform random patch a focuser frame, the
+    focuser and the head in train mode when ``train`` (the focuser's
+    running statistics advance), the sum consensus. Draws from
+    ``generator`` (on the model's device), in this order, the actions
+    (B, Tf, 2) and the head's dropout mask (B, Tf, 2048); ``actions`` and
+    ``keep`` replace them. Records autograd as the caller's grad mode says;
+    runs under ``model.autocast()``. Returns (B, classes)."""
+    cfg = model.cfg
+    b, tf = frames.shape[:2]
+    if actions is None:
+        actions = random_patch_actions((b, tf), generator, model.device)
+    with model.autocast():
+        with torch.no_grad():
+            _, global_logits = glance_logits(model, frames_small)
+        patches = extract_for_frames(frames, actions, cfg.image_size, cfg.patch_size)
+        local = local_frame_logits(model, patches, b, train, keep, generator)
+        return sum_consensus(global_logits, local, cfg.with_glancer)
+
+
+def divisional_confidences(local_logits: torch.Tensor, random_logits: torch.Tensor,
+                           global_logits: Optional[torch.Tensor], labels: torch.Tensor,
+                           video_div: int, with_glancer: bool = True
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-division confidences of the label, stage 2's rewards.
+
+    After division d the policy's logits are the mean of the per-frame
+    local logits of divisions <= d (plus the glancer's consensus), and the
+    baseline's swap division d's frames for those of random patches: the
+    original model's accumulate-and-rerun, computed incrementally.
+    local_logits / random_logits (B, Tf, C) from the policy's / random
+    patches, global_logits (B, Tg, C). Returns (policy's, baseline's)
+    softmax probability of the label, (B, D) float32."""
+    b, tf, c = local_logits.shape
+    f = tf // video_div
+    blocks_pol = local_logits.reshape(b, video_div, f, c).sum(dim=2)
+    blocks_rnd = random_logits.reshape(b, video_div, f, c).sum(dim=2)
+    cum_pol = blocks_pol.cumsum(dim=1)
+    denom = (torch.arange(1, video_div + 1, device=cum_pol.device) * f).reshape(1, -1, 1)
+    total_pol = cum_pol / denom
+    total_base = (cum_pol - blocks_pol + blocks_rnd) / denom
+    if with_glancer and global_logits is not None:
+        g = avg_consensus(global_logits)[:, None, :]
+        total_pol = total_pol + g
+        total_base = total_base + g
+
+    def conf(logits):
+        probs = F.softmax(logits.float(), dim=-1)
+        return probs.gather(-1, labels.long().reshape(b, 1, 1).expand(b, video_div, 1))[..., 0]
+
+    return conf(total_pol), conf(total_base)

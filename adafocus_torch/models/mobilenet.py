@@ -5,7 +5,8 @@ package (``stem``, ``block_{i}_{j}/{expand,dw,project}``, ``head_conv``,
 ``classifier``), so a flax tree maps onto the state dict key by key. With
 ``n_frames > 0`` every residual block shifts its branch input across time
 (``models/tsm.py``), the TSM glancer of the sth-sth family; the skip
-connection adds the unshifted input.
+connection adds the unshifted input. ``remat`` recomputes each block in the
+backward (``layers.remat_block``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from adafocus_torch.models.layers import ConvBNAct, global_avg_pool, make_divisible
+from adafocus_torch.models.layers import (
+    ConvBNAct, global_avg_pool, make_divisible, remat_block,
+)
 from adafocus_torch.models.tsm import temporal_shift_nchw
 
 # (expand_ratio t, channels c, num_blocks n, stride s)
@@ -60,8 +63,9 @@ class MobileNetV2(nn.Module):
     sth-sth family's per-frame global logits). ``n_frames > 0``: the TSM
     variant, T = ``n_frames`` consecutive frames a clip along the batch."""
 
-    def __init__(self, num_classes: int = 1000, n_frames: int = 0):
+    def __init__(self, num_classes: int = 1000, n_frames: int = 0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.feature_dim = make_divisible(1280)
         in_c = make_divisible(32)
         self.stem = ConvBNAct(3, in_c, kernel_size=3, stride=2)
@@ -82,7 +86,8 @@ class MobileNetV2(nn.Module):
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem(x)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = remat_block(block, x) if self.remat else block(x)
         return self.head_conv(x)
 
     def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,8 +8,10 @@ and a scalar critic.
   argmax (eval) or a categorical draw from an explicit ``torch.Generator``
   (the stage-2 PPO rollout, ``sample_discrete``).
 - Continuous (the sth-sth family): the actor emits a sigmoid 2-d mean; the
-  greedy action is the mean. Sampling the Gaussian around it (stage 2 of
-  that family) is not ported yet.
+  greedy action is the mean, a sampled one a draw of N(mean, std^2 I)
+  clamped to [0, 1], whose logprob is that of the clamped action
+  (``sample_continuous``), as the behavior rollout and the PPO evaluate
+  pass both score the stored clamped action.
 """
 
 from __future__ import annotations
@@ -78,14 +80,16 @@ class StateEncoder(nn.Module):
 
 class ActorCritic(nn.Module):
     """Recurrent actor-critic: discrete over a K-point anchor grid, or
-    ``continuous`` (a sigmoid 2-d mean)."""
+    ``continuous`` (a sigmoid 2-d mean; the Gaussian's std ``action_std``
+    when sampled)."""
 
     def __init__(self, in_channels: int, map_hw: Tuple[int, int],
                  action_dim: int = 49, hidden_dim: int = 1024,
                  encoder_channels: int = 32, continuous: bool = False,
-                 encoder_bn: bool = False):
+                 encoder_bn: bool = False, action_std: float = 0.1):
         super().__init__()
         self.continuous = continuous
+        self.action_std = action_std
         self.encoder = StateEncoder(in_channels, map_hw, encoder_channels, encoder_bn)
         self.gru = GRUCell(STATE_DIM, hidden_dim)
         self.actor = nn.Linear(hidden_dim, 2 if continuous else action_dim)
@@ -142,27 +146,63 @@ def discrete_to_coords(idx: torch.Tensor, action_dim: int) -> torch.Tensor:
     return action_grid(action_dim, device=idx.device)[idx]
 
 
+def gaussian_logprob(x: torch.Tensor, mean: torch.Tensor, action_std: float) -> torch.Tensor:
+    """log N(x; mean, std^2 I) summed over the last axis, in float32 at least
+    (float64 stays float64)."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, mean.dtype), torch.float32)
+    var = action_std ** 2
+    d = x.to(dtype) - mean.to(dtype)
+    return (-0.5 * (d * d / var + math.log(2.0 * math.pi * var))).sum(-1)
+
+
+def gaussian_entropy(action_std: float, dim: int = 2) -> float:
+    """Entropy of N(., std^2 I) in ``dim`` dimensions (independent of the mean)."""
+    return 0.5 * dim * (1.0 + math.log(2.0 * math.pi * action_std ** 2))
+
+
+def sample_continuous(mean: torch.Tensor, action_std: float,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A draw of N(mean, std^2 I) clamped to [0, 1]: ``clamp(mean + std *
+    noise)``, ``noise`` standard normal from ``generator`` (on the means'
+    device) unless given (the means' shape). Returns (action, logprob), in
+    float32 at least; the logprob is ``gaussian_logprob`` of the *clamped*
+    action, the one stored and scored again by the PPO evaluate pass."""
+    dtype = torch.promote_types(mean.dtype, torch.float32)
+    if noise is None:
+        if generator is None:
+            raise ValueError("sampling needs a generator or the noise")
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=dtype)
+    action = (mean.to(dtype) + noise.to(mean.device, dtype) * action_std).clamp(0.0, 1.0)
+    return action, gaussian_logprob(action, mean, action_std)
+
+
 def sample_rollout(actor_out: torch.Tensor, mode: str, action_dim: int,
                    generator: Optional[torch.Generator] = None,
-                   continuous: bool = False
+                   continuous: bool = False, action_std: float = 0.25,
+                   noise: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Action selection over a time-major rollout.
 
     actor_out: (T, B, K) logits, or (T, B, 2) sigmoid means when
     ``continuous``. mode 'greedy' takes the argmax (the mean), 'sample'
-    draws from ``generator`` (required). Returns time-major (actions (T, B,
-    2), f32 on the grid and in the means' dtype when continuous, idx (T, B),
-    zeros when continuous, logprob (T, B) f32, zeros in greedy mode).
+    draws from ``generator`` (the continuous draw ``sample_continuous`` at
+    ``action_std``; its standard normal ``noise`` (T, B, 2) may be given
+    instead). Returns time-major (actions (T, B, 2), f32 on the grid and
+    when sampled, the means' dtype when greedy and continuous, idx (T, B),
+    zeros when continuous, logprob (T, B) f32 at least, zeros in greedy
+    mode).
     """
     if mode not in ("greedy", "sample"):
         raise ValueError(f"unknown mode {mode!r}: 'greedy' or 'sample'")
     if continuous:
-        if mode == "sample":
-            raise NotImplementedError(
-                "sampling the continuous policy (stage 2 of the sth-sth family) "
-                "is not ported yet")
         zeros = actor_out.shape[:-1]
-        return (actor_out, torch.zeros(zeros, dtype=torch.long, device=actor_out.device),
+        idx = torch.zeros(zeros, dtype=torch.long, device=actor_out.device)
+        if mode == "sample":
+            actions, logprob = sample_continuous(actor_out, action_std, generator, noise)
+            return actions, idx, logprob
+        return (actor_out, idx,
                 torch.zeros(zeros, dtype=torch.float32, device=actor_out.device))
     if mode == "sample":
         if generator is None:

@@ -5,8 +5,13 @@ conv2,conv3,down}``, ``fc``). The stride sits on ``conv2``, the 3x3, and
 the stem's max-pool is 3/2/1. With ``n_frames > 0`` every bottleneck
 shifts its branch input across time (``models/tsm.py``), the 'blockres'
 TSM of the sth-sth focuser; ``down`` and the identity read the unshifted
-input, and the stem and the max-pool do not shift. Per-block
-rematerialization is not ported yet.
+input, and the stem and the max-pool do not shift.
+
+``partial_bn`` (TSM's partial BatchNorm, the JAX package's
+``ResNet.partial_bn``): in train mode only the stem's BatchNorm uses batch
+statistics; every block's runs on its running statistics, which stay as
+they are. ``remat`` recomputes each block in the backward
+(``layers.remat_block``), the JAX package's per-block ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from adafocus_torch.models.layers import ConvBNAct, global_avg_pool
+from adafocus_torch.models.layers import ConvBNAct, global_avg_pool, remat_block
 from adafocus_torch.models.tsm import temporal_shift_nchw
 
 
@@ -52,10 +57,14 @@ _RESNET50_STAGES = (3, 4, 6, 3)
 class ResNet(nn.Module):
     """ResNet-50. ``forward`` is the stage-0 pretraining head (``features``,
     then ``fc``); inference reads only ``features``. ``n_frames > 0``: the
-    TSM variant, T = ``n_frames`` consecutive frames a clip along the batch."""
+    TSM variant, T = ``n_frames`` consecutive frames a clip along the batch.
+    ``partial_bn`` and ``remat``: see the module's docstring."""
 
-    def __init__(self, num_classes: int = 1000, n_frames: int = 0):
+    def __init__(self, num_classes: int = 1000, n_frames: int = 0,
+                 partial_bn: bool = False, remat: bool = False):
         super().__init__()
+        self.partial_bn = partial_bn
+        self.remat = remat
         self.stem = ConvBNAct(3, 64, kernel_size=7, stride=2, act=F.relu)
         self.block_names = []
         in_c = 64
@@ -72,10 +81,18 @@ class ResNet(nn.Module):
                 in_c = out_c
         self.fc = nn.Linear(in_c, num_classes)
 
+    def train(self, mode: bool = True) -> "ResNet":
+        super().train(mode)
+        if self.partial_bn:
+            for name in self.block_names:
+                getattr(self, name).eval()
+        return self
+
     def backbone(self, x: torch.Tensor) -> torch.Tensor:
         x = F.max_pool2d(self.stem(x), kernel_size=3, stride=2, padding=1)
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            x = remat_block(block, x) if self.remat else block(x)
         return x
 
     def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,5 +105,7 @@ class ResNet(nn.Module):
         return self.fc(self.features(x)[1])
 
 
-def resnet50(num_classes: int = 1000, n_frames: int = 0) -> ResNet:
-    return ResNet(num_classes=num_classes, n_frames=n_frames)
+def resnet50(num_classes: int = 1000, n_frames: int = 0, partial_bn: bool = False,
+             remat: bool = False) -> ResNet:
+    return ResNet(num_classes=num_classes, n_frames=n_frames, partial_bn=partial_bn,
+                  remat=remat)

@@ -19,6 +19,13 @@ As in the JAX package, the loss is computed in float32 whatever the
 parameters' dtype: ``evaluate_episode`` returns float32 logprobs, values and
 entropies. Its ``log_softmax`` runs in float32 at least, where the JAX
 package takes it in the compute dtype (bf16 for the flagship).
+
+A continuous policy (the sth-sth family's) scores the stored clamped
+actions under its Gaussian, whose entropy is a constant. A policy with a
+BatchNorm encoder carries its running statistics as the JAX package does:
+each epoch's evaluate pass runs it in train mode and advances them once
+(the behavior rollout, ``train.stages._rollout_time_major``, normalises
+with the same batch statistics and leaves the running ones).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from typing import Callable, ContextManager, Dict, Iterable, Optional, Tuple
 import torch
 from torch import nn
 
-from adafocus_torch.models.policy import discrete_logprobs
+from adafocus_torch.models.layers import training
+from adafocus_torch.models.policy import discrete_logprobs, gaussian_entropy, gaussian_logprob
 
 ADAM_EPS = 1e-8     # optax.adam's default
 
@@ -102,20 +110,25 @@ def discounted_returns(rewards_tb: torch.Tensor, gamma: float) -> torch.Tensor:
 def evaluate_episode(policy: nn.Module, fmaps_tb: torch.Tensor, actions_tb: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Re-run the recurrent policy over a stored episode under its current
-    parameters: fmaps (T, B, gh, gw, C), grid indices (T, B) -> float32
-    (logprob (T, B), value (T, B), entropy (T, B))."""
+    parameters, in the policy's current mode: fmaps (T, B, gh, gw, C), grid
+    indices (T, B) or, for a continuous policy, clamped actions (T, B, 2)
+    -> float32 at least (logprob (T, B), value (T, B), entropy (T, B))."""
     _, actor_out, value = policy.rollout_states(fmaps_tb)
-    logprobs = discrete_logprobs(actor_out)
-    logp = logprobs.gather(-1, actions_tb[..., None])[..., 0]
-    entropy = -(logprobs.exp() * logprobs).sum(-1)
+    if policy.continuous:
+        logp = gaussian_logprob(actions_tb, actor_out, policy.action_std)
+        entropy = torch.full_like(logp, gaussian_entropy(policy.action_std))
+    else:
+        logprobs = discrete_logprobs(actor_out)
+        logp = logprobs.gather(-1, actions_tb[..., None])[..., 0]
+        entropy = -(logprobs.exp() * logprobs).sum(-1)
     return logp.float(), value.float(), entropy.float()
 
 
 def ppo_loss(policy: nn.Module, memory: Dict[str, torch.Tensor], cfg: PPOConfig
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped-surrogate PPO loss of a time-major episode: ``memory`` holds
-    fmaps, actions (grid indices), old_logprob and returns (discounted and
-    normalised), each (T, B, ...)."""
+    fmaps, actions (grid indices or continuous actions), old_logprob and
+    returns (discounted and normalised), each (T, B, ...)."""
     logp, values, entropy = evaluate_episode(policy, memory["fmaps"], memory["actions"])
     advantages = memory["returns"] - values.detach()
     ratios = torch.exp(logp - memory["old_logprob"])
@@ -136,12 +149,16 @@ def ppo_update(state: PPOState, memory: Dict[str, torch.Tensor],
     """``cfg.k_epochs`` epochs of clipped PPO on one episode, each one Adam
     step; the loss forward runs under ``autocast()`` (``GFV.autocast`` for a
     model that computes in another dtype than its parameters'), its
-    backward outside. Returns the last epoch's metrics, 0-d tensors."""
-    for _ in range(state.cfg.k_epochs):
-        state.optimizer.zero_grad(set_to_none=True)
-        with autocast():
-            loss, metrics = ppo_loss(state.policy, memory, state.cfg)
-        loss.backward()
-        state.optimizer.step()
+    backward outside. The policy is in train mode meanwhile, so that a
+    BatchNorm encoder normalises with batch statistics and advances its
+    running ones once an epoch; its former mode after. Returns the last
+    epoch's metrics, 0-d tensors."""
+    with training(state.policy):
+        for _ in range(state.cfg.k_epochs):
+            state.optimizer.zero_grad(set_to_none=True)
+            with autocast():
+                loss, metrics = ppo_loss(state.policy, memory, state.cfg)
+            loss.backward()
+            state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}

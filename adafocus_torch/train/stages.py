@@ -10,6 +10,10 @@ adafocus_tpu/train/stages.py).
            (``make_stage2_step``);
   stage 3  the frozen greedy policy's patches: only the classifier trains.
 
+The sth-sth family (``classifier="consensus"``) has its own steps in
+train/stages_sthsth.py; the pieces both share live here
+(``create_train_state``, ``_rollout_time_major``).
+
 A frozen phase runs under ``torch.no_grad()`` with its backbone in eval
 mode, so its running statistics stay as they are; its parameters are out of
 the optimizer (train/optim.py). Where the JAX step returns a new state, a
@@ -27,6 +31,7 @@ from torch.nn import functional as F
 from adafocus_torch.models.gfv import (
     GFV, GFVConfig, Device, extract_for_frames, fuse_and_classify, inference,
 )
+from adafocus_torch.models.layers import stats_frozen, training
 from adafocus_torch.models.policy import discrete_logprobs, discrete_to_coords, sample_rollout
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import random_patch_actions
@@ -54,20 +59,33 @@ def create_train_state(cfg: GFVConfig, stage: int, optim: OptimConfig = OptimCon
     """A training GFV (float32 parameters, compute in ``cfg.dtype``; weights
     from ``generator``) on ``device`` (the GPU unless ``device="cpu"``), and
     the optimizer and schedule of ``stage``; for stage 2, the PPO learner
-    of ``ppo`` over the policy, every other component frozen."""
+    of ``ppo`` over the policy, every other component frozen. The sth-sth
+    family's stage 3 finetunes the focuser and the classifier, so its
+    optimizer takes stage 1's freeze matrix, as the JAX package's CLI
+    labels it (``cli/train.py make_tx``); ``cfg.partial_bn`` freezes the
+    focuser's block BatchNorms' affine parameters."""
     model = GFV(cfg, device=device, generator=generator, param_dtype=torch.float32)
     if stage == 2:
         freeze_for_stage(model, 2)
         return TrainState(model, None, None, ppo_init(model.policy, ppo))
-    return TrainState(model, *make_stage_optimizer(model, stage, optim))
+    return TrainState(model, *make_stage_optimizer(model, optimizer_stage(cfg, stage), optim,
+                                                   partial_bn=cfg.partial_bn))
 
 
-def _check_trainable(model: GFV) -> None:
-    if model.cfg.serving_only:
-        raise NotImplementedError(
-            "training the sth-sth parts (TSM, the consensus head, the continuous "
-            "policy, the BatchNorm encoder, video divisions, dual-rate frames) is "
-            f"not ported yet: {model.cfg}")
+def optimizer_stage(cfg: GFVConfig, stage: int) -> int:
+    """The freeze-matrix row that ``stage``'s optimizer takes: stage 1's for
+    the sth-sth family's stage 3, else the stage's own."""
+    return 1 if cfg.sthsth and stage == 3 else stage
+
+
+def _check_trainable(model: GFV, sthsth: bool = False) -> None:
+    """Raises unless ``model`` trains in float32 or float64 parameters, on
+    the steps of its family (``sthsth``: train/stages_sthsth.py)."""
+    if model.cfg.sthsth != sthsth:
+        raise ValueError(
+            "a consensus-head (sth-sth) model trains through train.stages_sthsth"
+            if model.cfg.sthsth else
+            "the sth-sth steps train a consensus-head model (classifier='consensus')")
     if model.param_dtype not in (torch.float32, torch.float64):
         raise ValueError("a train step needs float32 parameters (create_train_state); "
                          f"this model's are {model.param_dtype}")
@@ -143,19 +161,26 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
                 note("heads")
         loss.backward()
         note("backward")
-        # optax updates every trainable leaf, one the loss does not reach
-        # too (zero gradient: weight decay and momentum still move it)
-        for group in optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        optimizer.step()
-        scheduler.step()
+        _sgd_step(optimizer, scheduler)
         note("optimizer")
         top1, top5 = topk_accuracy(logits[:, -1].detach(), labels)
         return {"loss": loss.detach(), "top1": top1, "top5": top5}
 
     return step
+
+
+def _sgd_step(optimizer: torch.optim.Optimizer,
+              scheduler: torch.optim.lr_scheduler.LRScheduler) -> None:
+    """One optimizer and schedule step after the backward. optax updates
+    every trainable leaf, one the loss does not reach too (zero gradient:
+    weight decay and momentum still move it), so such a leaf gets a zero
+    gradient first."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    optimizer.step()
+    scheduler.step()
 
 
 def _target_confidence(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -168,19 +193,31 @@ def _target_confidence(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 def _rollout_time_major(policy: torch.nn.Module, fmaps_tb: torch.Tensor,
                         generator: Optional[torch.Generator], action_dim: int,
-                        idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                        behavior: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The behavior rollout over time-major glance maps (T, B, gh, gw, C):
-    actions sampled from ``generator``, or the grid indices ``idx`` (T, B)
-    given. Returns coords (T, B, 2) float32, store (the indices), logprob
-    and value (T, B) float32. The caller holds ``no_grad``."""
-    _, actor_out, value = policy.rollout_states(fmaps_tb)
-    if idx is None:
-        coords, idx, logprob = sample_rollout(actor_out, "sample", action_dim, generator)
+    actions sampled from ``generator``; ``behavior`` replaces the draw: the
+    grid indices (T, B) of a discrete policy, the standard normal noise
+    (T, B, 2) of a continuous one. Returns coords (T, B, 2) float32, store
+    (what PPO scores again: the indices, or the clamped continuous actions),
+    logprob and value (T, B) float32. A policy with a BatchNorm encoder runs
+    in train mode with its running statistics left as they are, as the JAX
+    package runs it (its update discarded): the same batch statistics as
+    the evaluate pass, so that the ratios start at 1. The caller holds
+    ``no_grad``."""
+    with training(policy), stats_frozen(policy):
+        _, actor_out, value = policy.rollout_states(fmaps_tb)
+    if policy.continuous:
+        coords, _, logprob = sample_rollout(actor_out, "sample", action_dim, generator, True,
+                                            policy.action_std, behavior)
+        coords, store = coords.float(), coords
+    elif behavior is None:
+        coords, store, logprob = sample_rollout(actor_out, "sample", action_dim, generator)
     else:
-        idx = idx.to(actor_out.device)
-        coords = discrete_to_coords(idx, action_dim)
-        logprob = discrete_logprobs(actor_out).gather(-1, idx[..., None])[..., 0].float()
-    return {"coords": coords, "store": idx, "logprob": logprob, "value": value.float()}
+        store = behavior.to(actor_out.device)
+        coords = discrete_to_coords(store, action_dim)
+        logprob = discrete_logprobs(actor_out).gather(-1, store[..., None])[..., 0]
+    return {"coords": coords, "store": store, "logprob": logprob.float(),
+            "value": value.float()}
 
 
 def stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
@@ -256,8 +293,7 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
     mean reward and confidence.
     """
     _check_trainable(model)
-    if ppo.policy is not model.policy:
-        raise ValueError("the PPO learner must train this model's policy (ppo_init(model.policy))")
+    _check_learner(model, ppo)
 
     def step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
              behavior_idx: Optional[torch.Tensor] = None,
@@ -273,6 +309,11 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
         return metrics
 
     return step
+
+
+def _check_learner(model: GFV, ppo: PPOState) -> None:
+    if ppo.policy is not model.policy:
+        raise ValueError("the PPO learner must train this model's policy (ppo_init(model.policy))")
 
 
 def make_eval_step(model: GFV) -> Callable:

@@ -106,13 +106,32 @@ Phases, each raising on failure:
      the patch kernel at the CLI's shape (N=512) on a batch of the cache,
      from random and from the policy's actions, bit for bit against the
      plain version.
+ 10. the sth-sth family's training, this slice's main path
+     (``train.stages_sthsth``, the CLI's ``run.family=sthsth``), at the
+     matched configuration with the recipe's TSN optimizer groups, bf16
+     compute: stages 1, 2 (reward 'random') and 3 at B=64, two warm-up and
+     five timed steps each with the launch counts set to 0 just before
+     (videos/s, the phase split by CUDA events, peak memory, exactly 1, 2
+     and 1 patch launches a step, every stage-2 ratio_mean within 1e-3 of 1,
+     frozen components bit-identical, every trained tensor moved); the patch
+     kernel on the stage-1 batch (N=768) bit for bit; the discrete
+     BatchNorm-encoder policy's stage 2 at video_div=2, B=8 (ratios); one
+     step of each stage in float32 (TF32 off) against float64 at B=4 on the
+     same weights, batch and injected draws (phase 6's and 7's limits; bf16
+     against float32 printed); 10^6 draws of the continuous sampler (the
+     clamped shares and the unclamped mean within 5 sigma); remat on against
+     off, one float32 stage-1 step at B=64 (loss, updates, running
+     statistics updated once, both peak memories); the CLI with
+     ``configs/sthsth_default.yaml`` (B=32, 64 synthetic dual-rate clips in
+     a device cache): stages 1 -> 2 -> 3 and evaluate (learned, random,
+     center), each with its patch launches counted.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
-instruction), the profile, the stage-1 and stage-2 timings, the matched configuration's
-results, the bench, the CLI's results and the kernel table (each kernel's launches on every
-path, its times at the flagship's and the matched configuration's shapes)
-as JSON lines, then as its last line
+instruction), the profile, the stage-1 and stage-2 timings, the matched
+configuration's results, the bench, the CLI's results, phase 10's results
+and the kernel table (each kernel's launches on every path, its times at
+the flagship's and the matched configuration's shapes) as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -853,10 +872,12 @@ def _snapshot(model) -> dict:
 def check_train_update(before: dict, model, stage: int, label: str) -> None:
     """After train steps of ``stage``: every tensor (parameter or running
     statistic) of a frozen component bit-identical; every parameter of a
-    trained component moved, except one that is zero and got a zero
-    gradient (``focuser.fc.bias`` in stage 1: off the loss path, so weight
-    decay leaves it at 0); the running statistics of a trained backbone
-    moved."""
+    trained component moved, except one that got a zero gradient and is
+    zero (``focuser.fc.bias`` in stage 1: off the loss path, so weight
+    decay leaves it at 0) or is trained by PPO's Adam, which has no weight
+    decay (``policy.gru.weight_hh`` with one video division: the GRU's one
+    step starts from a zero hidden); the running statistics of a trained
+    backbone moved."""
     import torch
 
     from adafocus_torch.train.optim import stage_trainable
@@ -875,7 +896,8 @@ def check_train_update(before: dict, model, stage: int, label: str) -> None:
                 raise AssertionError(f"{label}: frozen {key} changed")
         elif same:
             g = grads.get(key)
-            if key in grads and not old.any() and (g is None or not g.any()):
+            if key in grads and (not old.any() or labels[comp] == "ppo") and \
+                    (g is None or not g.any()):
                 still.append(key)
             else:
                 raise AssertionError(f"{label}: trained {key} did not move")
@@ -1774,6 +1796,466 @@ def cli_phase(device, card: str) -> dict:
     return out
 
 
+# phase 10, the sth-sth family's training (adafocus_torch.train.stages_sthsth
+# and the CLI's run.family=sthsth), this slice's main path, at the matched
+# configuration (benchmark.sthsth_cfg(144)) with the recipe's TSN optimizer
+# groups (configs/sthsth_default.yaml), bf16 compute over float32
+# parameters, at the recipe's B=64. The precision checks hold one step of
+# each stage, float32 (TF32 off) against float64 at B=4, to phase 6's
+# limits (stages 1 and 3) and phase 7's (stage 2). The continuous sampler's
+# clamped shares and unclamped mean are held within SAMPLER_SIGMAS of the
+# normal distribution's values. remat on against off: one float32 stage-1
+# step (TF32 off), the loss and each trained component's update to phase
+# 6's float32 limits, and the running statistics within REMAT_STATS_REL of
+# each other relative to the step's change of them (a second update would
+# move them by 0.9 of that change)
+STH_B = 64                   # configs/sthsth_default.yaml loader.batch_size
+STH_COMPARE_B = 4
+STH_DISCRETE_B, STH_DISCRETE_STEPS = 8, 3
+STH_SAMPLER_MEANS = (0.1, 0.8)
+REMAT_STATS_REL = 1e-2
+STH_CLI_VIDEOS, STH_CLI_B = 64, 32
+STH_STAGES = (1, 2, 3)
+
+
+def _sthsth_cfg(**kw):
+    from adafocus_torch.benchmark import sthsth_cfg
+
+    return dataclasses.replace(sthsth_cfg(144), **kw)
+
+
+def _sthsth_batch(cfg, b, device, seed, dtype):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s, g = cfg.image_size, cfg.glance_size
+    return {"frames": torch.randn((b, cfg.t_focuser, s, s, 3), generator=gen, device=device,
+                                  dtype=dtype),
+            "frames_small": torch.randn((b, cfg.num_frames, g, g, 3), generator=gen,
+                                        device=device, dtype=dtype),
+            "labels": torch.randint(0, cfg.num_classes, (b,), generator=gen, device=device)}
+
+
+def _sthsth_state(cfg, stage, device):
+    import torch
+
+    from adafocus_torch.train.optim import OptimConfig
+    from adafocus_torch.train.stages import create_train_state
+
+    return create_train_state(cfg, stage, OptimConfig(tsn_policies=True), device=device,
+                              generator=torch.Generator().manual_seed(SEED))
+
+
+def _sthsth_step(state, stage):
+    from adafocus_torch.train.stages_sthsth import make_sthsth_stage2_step, make_sthsth_train_step
+
+    if stage == 2:
+        return make_sthsth_stage2_step(state.model, state.ppo)
+    return make_sthsth_train_step(state.model, stage, state.optimizer, state.scheduler)
+
+
+def sthsth_train_timed(device, card: str) -> dict:
+    """Phase 10, the main path: each sth-sth stage's step at the matched
+    configuration, B=STH_B, TRAIN_WARMUP + TRAIN_TIMED steps with the launch
+    counts set to 0 just before: videos/s and each phase's ms by CUDA
+    events, peak memory; exactly 1, 2 and 1 patch launches a step; finite
+    metrics, every stage-2 step's ratio_mean within RATIO_TOL of 1; frozen
+    components bit-identical and every trained tensor moved. The patch
+    kernel on the stage-1 batch from random actions, bit for bit."""
+    import torch
+
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.train.stages import optimizer_stage
+
+    cfg = _sthsth_cfg()
+    batch = _sthsth_batch(cfg, STH_B, device, SEED + 20, torch.bfloat16)
+    out = {}
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    for stage in STH_STAGES:
+        state = _sthsth_state(cfg, stage, device)
+        step = _sthsth_step(state, stage)
+        gen = torch.Generator(device=device).manual_seed(SEED + 21 + stage)
+        before = _snapshot(state.model)
+        run = _timed_steps(step, batch, gen, device)
+        want = (2 if stage == 2 else 1) * n_steps
+        if run["launches"] != {"extract_patches": want, "fused_inverted_residual": 0,
+                               "fused_bottleneck": 0}:
+            raise AssertionError(f"sth-sth stage {stage}: launches {run['launches']} in "
+                                 f"{n_steps} steps, want {want} patch launches")
+        metrics = run["metrics"]
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"sth-sth stage {stage} metrics {metrics}")
+        if stage == 2:
+            ratios = [m["ppo/ratio_mean"] for m in metrics]
+            if not all(abs(r - 1.0) <= RATIO_TOL for r in ratios):
+                raise AssertionError(f"sth-sth stage 2 ratio_mean {ratios}, want within "
+                                     f"{RATIO_TOL} of 1")
+        check_train_update(before, state.model, optimizer_stage(cfg, stage),
+                           f"sth-sth stage {stage} B={STH_B}")
+        vps, step_ms, peak = run["videos_per_s"], run["step_ms"], run["peak_bytes"]
+        loss_key = "ppo/loss" if stage == 2 else "loss"
+        print(f"train sth-sth stage {stage} (TSN groups) bf16 B={STH_B} Tg={cfg.num_frames} "
+              f"Tf={cfg.t_focuser} P={cfg.patch_size}: videos/s {vps!r} (mean "
+              f"{STH_B * len(step_ms) / (sum(step_ms) / 1e3)!r}); step ms {step_ms!r}; phase "
+              f"ms {json.dumps(run['phase_ms'])}; peak memory {peak} B ({peak / 2**30:.2f} "
+              f"GiB); patch launches {run['launches']['extract_patches']} in {n_steps} steps; "
+              f"{loss_key} {[m[loss_key] for m in metrics]}"
+              + (f"; ratio_mean {[m['ppo/ratio_mean'] for m in metrics]!r}" if stage == 2
+                 else "") + f" ({card})", flush=True)
+        out[stage] = {k: run[k] for k in ("videos_per_s", "step_ms", "phase_ms", "peak_bytes",
+                                          "launches", "metrics")}
+        del state, step, before, run
+        torch.cuda.empty_cache()
+    actions = random_patch_actions((STH_B, cfg.t_focuser),
+                                   torch.Generator(device=device).manual_seed(SEED), device)
+    check_patch_at(batch["frames"], actions, cfg.image_size, cfg.patch_size,
+                   f"sth-sth training batch B={STH_B} Tf={cfg.t_focuser} (N="
+                   f"{STH_B * cfg.t_focuser}) {cfg.image_size}^2 P={cfg.patch_size} bf16")
+    del batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def sthsth_discrete_ratio(device, card: str) -> dict:
+    """Phase 10: STH_DISCRETE_STEPS stage-2 steps of the discrete
+    BatchNorm-encoder policy over two video divisions at B=STH_DISCRETE_B:
+    every step's ratio_mean within RATIO_TOL of 1, two patch launches a
+    step."""
+    import torch
+
+    cfg = _sthsth_cfg(continuous_policy=False, video_div=2)
+    state = _sthsth_state(cfg, 2, device)
+    step = _sthsth_step(state, 2)
+    batch = _sthsth_batch(cfg, STH_DISCRETE_B, device, SEED + 25, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    _launch_counts(reset=True)
+    ratios = [float(step(batch, gen)["ppo/ratio_mean"]) for _ in range(STH_DISCRETE_STEPS)]
+    launches = _launch_counts()["extract_patches"]
+    print(f"train sth-sth stage 2, discrete BatchNorm-encoder policy, video_div=2, bf16 "
+          f"B={STH_DISCRETE_B}: ratio_mean {ratios!r} (limit |r - 1| <= {RATIO_TOL}); patch "
+          f"launches {launches} in {STH_DISCRETE_STEPS} steps ({card})", flush=True)
+    if launches != 2 * STH_DISCRETE_STEPS or not all(abs(r - 1) <= RATIO_TOL for r in ratios):
+        raise AssertionError(f"discrete sth-sth stage 2: ratios {ratios}, launches {launches}")
+    del state, step
+    torch.cuda.empty_cache()
+    return {"ratio_mean": ratios, "launches": launches}
+
+
+def sthsth_precisions(device) -> dict:
+    """Phase 10: one step of each sth-sth stage at B=STH_COMPARE_B in bf16
+    compute, float32 (TF32 off) and float64, from the same float32 initial
+    weights, on the same batch and injected draws (stage 1's actions and
+    dropout mask, stage 3's dropout mask and actions, stage 2's behavior
+    noise and baseline actions): float32 against float64 held to phase 6's
+    limits (stages 1 and 3: the loss, each trained component's gradient
+    cosine) and phase 7's (stage 2: the PPO loss, the rewards, the policy's
+    gradient cosine); bf16 against float32 printed."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.models.gfv_sthsth import actions_per_frame, glance_logits
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.ppo.core import PPOConfig, ppo_init, ppo_update
+    from adafocus_torch.train.optim import OptimConfig, freeze_for_stage, make_stage_optimizer
+    from adafocus_torch.train.stages import optimizer_stage
+    from adafocus_torch.train.stages_sthsth import make_sthsth_train_step, sthsth_stage2_episode
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = _sthsth_cfg()
+    b, tf, d = STH_COMPARE_B, cfg16.t_focuser, cfg16.video_div
+    batch = _sthsth_batch(cfg16, b, device, SEED + 27, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    draws = {"actions": random_patch_actions((b, tf), gen, device),
+             "keep": torch.rand((b, tf, cfg16.focus_dim), generator=gen, device=device) >= 0.5,
+             "noise": torch.randn((d, b, 2), generator=gen, device=device),
+             "baseline": random_patch_actions((b, d), gen, device)}
+    init = None
+    runs = {stage: {} for stage in STH_STAGES}
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        model = GFV(dataclasses.replace(cfg16, dtype=dtype), device=device,
+                    generator=torch.Generator().manual_seed(SEED),
+                    param_dtype=torch.promote_types(dtype, torch.float32))
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            # stage 3's greedy actions, taken once (the float64 model's)
+            with torch.no_grad(), model.autocast():
+                fmap, _ = glance_logits(model, batch["frames_small"])
+                draws["greedy"] = actions_per_frame(
+                    model.policy_rollout_div(fmap)["actions"], tf).float()
+        for stage in STH_STAGES:
+            model.load_state_dict(init)
+            if stage == 2:
+                freeze_for_stage(model, 2)
+                ppo = ppo_init(model.policy, PPOConfig())
+                episode = sthsth_stage2_episode(model, batch, None, ppo.cfg, draws["noise"],
+                                                draws["baseline"])
+                metrics = ppo_update(ppo, episode, model.autocast)
+                runs[stage][name] = (float(metrics["ppo/loss"]), {"policy": torch.cat([
+                    p.grad.flatten().double() for p in model.policy.parameters()])},
+                    episode["rewards"].double().flatten())
+                continue
+            opt, sched = make_stage_optimizer(model, optimizer_stage(cfg16, stage),
+                                              OptimConfig(tsn_policies=True))
+            step = make_sthsth_train_step(model, stage, opt, sched)
+            loss = float(step(batch, None, draws["actions" if stage == 1 else "greedy"],
+                              draws["keep"])["loss"])
+            runs[stage][name] = (loss, {comp: torch.cat([
+                p.grad.flatten().double() for p in getattr(model, comp).parameters()])
+                for comp in ("focuser", "classifier")}, None)
+        del model
+        torch.cuda.empty_cache()
+
+    out, failed = {}, []
+    for stage in STH_STAGES:
+        for name, ref in (("float32", "float64"), ("bfloat16", "float32")):
+            (loss, g, r), (loss_ref, g_ref, r_ref) = runs[stage][name], runs[stage][ref]
+            cmp = {"loss": loss, "loss_ref": loss_ref,
+                   "loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+                   "grad_cos": {c: float(torch.nn.functional.cosine_similarity(
+                       g[c], g_ref[c], dim=0)) for c in g},
+                   "grad_norm_ratio": {c: float(g[c].norm() / g_ref[c].norm()) for c in g}}
+            if r is not None:
+                cmp["reward_rel"] = float((r - r_ref).abs().max() / r_ref.abs().max())
+            print(f"train sth-sth stage {stage} B={b}, {name} vs {ref} (TF32 off), one step "
+                  f"on the same weights, batch and draws: {json.dumps(cmp)}", flush=True)
+            if not math.isfinite(loss):
+                failed.append(f"stage {stage} {name} loss {loss}")
+            if name == "float32":
+                loss_tol = PPO_F32_LOSS_REL_TOL if stage == 2 else F32_LOSS_REL_TOL
+                cos_min = PPO_F32_GRAD_MIN_COS if stage == 2 else F32_GRAD_MIN_COS
+                if not cmp["loss_rel"] <= loss_tol:
+                    failed.append(f"stage {stage} float32 loss")
+                failed += [f"stage {stage} float32 {c} cosine"
+                           for c, v in cmp["grad_cos"].items() if not v >= cos_min]
+                if stage == 2 and not cmp["reward_rel"] <= PPO_F32_REWARD_REL_TOL:
+                    failed.append("stage 2 float32 rewards")
+            out[f"stage {stage} {name} vs {ref}"] = cmp
+    print(f"sth-sth precision limits, float32 vs float64: stages 1 and 3 loss <= "
+          f"{F32_LOSS_REL_TOL}, gradient cosine >= {F32_GRAD_MIN_COS}; stage 2 ppo loss <= "
+          f"{PPO_F32_LOSS_REL_TOL}, rewards <= {PPO_F32_REWARD_REL_TOL}, policy gradient cosine "
+          f">= {PPO_F32_GRAD_MIN_COS}; bf16 vs float32 printed; failed: {failed}", flush=True)
+    if failed:
+        raise AssertionError(f"sth-sth precision checks failed: {failed}")
+    return out
+
+
+def _normal_cdf(x: float) -> float:
+    return 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))
+
+
+def _normal_pdf(x: float) -> float:
+    return math.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+
+
+def check_continuous_sampler(device) -> dict:
+    """Phase 10: SAMPLER_DRAWS draws of ``sample_continuous`` (std 0.25)
+    around each of STH_SAMPLER_MEANS on a CUDA generator: the shares clamped
+    to 0 and to 1 and the mean of the unclamped draws, each within
+    SAMPLER_SIGMAS standard errors of the normal distribution's value; the
+    logprob that of the clamped action."""
+    import torch
+
+    from adafocus_torch.models.policy import gaussian_logprob, sample_continuous
+
+    std = _sthsth_cfg().action_std
+    means = torch.tensor(STH_SAMPLER_MEANS, device=device)
+    actions, logp = sample_continuous(means.expand(SAMPLER_DRAWS, len(STH_SAMPLER_MEANS)), std,
+                                      torch.Generator(device=device).manual_seed(SEED + 29))
+    if not torch.equal(logp, gaussian_logprob(actions, means.expand_as(actions), std)):
+        raise AssertionError("the sampler's logprob is not that of the clamped action")
+    out, worst = [], 0.0
+    n = SAMPLER_DRAWS
+    for j, mu in enumerate(STH_SAMPLER_MEANS):
+        a = actions[:, j].double()
+        lo, hi = (0.0 - mu) / std, (1.0 - mu) / std
+        p0, p1 = _normal_cdf(lo), 1.0 - _normal_cdf(hi)
+        inside = (a > 0) & (a < 1)
+        # the normal truncated to (0, 1): its mean and variance
+        z_mass = _normal_cdf(hi) - _normal_cdf(lo)
+        dpdf = (_normal_pdf(lo) - _normal_pdf(hi)) / z_mass
+        t_mean = mu + std * dpdf
+        t_var = std ** 2 * (1 + (lo * _normal_pdf(lo) - hi * _normal_pdf(hi)) / z_mass
+                            - dpdf ** 2)
+        got = {"share_0": float((a == 0).double().mean()),
+               "share_1": float((a == 1).double().mean()),
+               "mean_inside": float(a[inside].mean())}
+        sig = {"share_0": (got["share_0"] - p0) / math.sqrt(p0 * (1 - p0) / n),
+               "share_1": (got["share_1"] - p1) / math.sqrt(p1 * (1 - p1) / n),
+               "mean_inside": (got["mean_inside"] - t_mean)
+               / math.sqrt(t_var / int(inside.sum()))}
+        worst = max(worst, max(abs(v) for v in sig.values()))
+        out.append({"mean": mu, "got": got, "want": {"share_0": p0, "share_1": p1,
+                                                     "mean_inside": t_mean}, "sigma": sig})
+    print(f"continuous sampler: {n} draws (std {std}) around each of {STH_SAMPLER_MEANS} on the "
+          f"card: {json.dumps(out)}; largest deviation {worst!r} sigma (limit "
+          f"{SAMPLER_SIGMAS})", flush=True)
+    if not worst <= SAMPLER_SIGMAS:
+        raise AssertionError(f"continuous sampler off by {worst} sigma")
+    return {"draws": n, "per_mean": out, "max_sigma": worst}
+
+
+def check_sthsth_remat(device, card: str) -> dict:
+    """Phase 10: one sth-sth stage-1 step at B=STH_B with ``remat`` on and
+    off, float32 compute (TF32 off), the same initial weights, batch,
+    actions and dropout mask: the loss (F32_LOSS_REL_TOL) and each trained
+    component's update (cosine >= F32_GRAD_MIN_COS, norm ratio within
+    1 -+ 1e-3); the running statistics updated once (their difference
+    within REMAT_STATS_REL of the step's change of them); both peak
+    memories printed."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.train.optim import OptimConfig, make_stage_optimizer
+    from adafocus_torch.train.stages_sthsth import make_sthsth_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _sthsth_cfg(dtype=torch.float32)
+    batch = _sthsth_batch(cfg, STH_B, device, SEED + 30, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    actions = random_patch_actions((STH_B, cfg.t_focuser), gen, device)
+    keep = torch.rand((STH_B, cfg.t_focuser, cfg.focus_dim), generator=gen, device=device) >= 0.5
+    runs = {}
+    init = None
+    for remat in (False, True):
+        model = GFV(dataclasses.replace(cfg, remat=remat), device=device,
+                    generator=torch.Generator().manual_seed(SEED))
+        init = init or _snapshot(model)
+        step = make_sthsth_train_step(model, 1, *make_stage_optimizer(
+            model, 1, OptimConfig(tsn_policies=True)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        loss = float(step(batch, None, actions, keep)["loss"])
+        torch.cuda.synchronize()
+        runs[remat] = (loss, _snapshot(model), torch.cuda.max_memory_allocated(device))
+        del model, step
+        torch.cuda.empty_cache()
+    (loss0, s0, peak0), (loss1, s1, peak1) = runs[False], runs[True]
+    upd = {}
+    for comp in ("focuser", "classifier"):
+        keys = [k for k in s0 if k.startswith(comp + ".")
+                and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+        u0 = torch.cat([(s0[k] - init[k]).flatten().double() for k in keys])
+        u1 = torch.cat([(s1[k] - init[k]).flatten().double() for k in keys])
+        upd[comp] = {"cos": float(torch.nn.functional.cosine_similarity(u0, u1, dim=0)),
+                     "norm_ratio": float(u1.norm() / u0.norm())}
+    stats = [k for k in s0 if k.endswith(("running_mean", "running_var"))]
+    moved = torch.cat([(s0[k] - init[k]).flatten().double() for k in stats])
+    apart = torch.cat([(s1[k] - s0[k]).flatten().double() for k in stats])
+    stats_rel = float(apart.norm() / moved.norm())
+    loss_rel = abs(loss1 - loss0) / abs(loss0)
+    print(f"sth-sth stage 1 remat on vs off, float32 (TF32 off) B={STH_B}: loss {loss1!r} vs "
+          f"{loss0!r} (relative {loss_rel!r}); update {json.dumps(upd)}; running statistics "
+          f"apart {stats_rel!r} of their change; peak memory {peak1} B ({peak1 / 2**30:.2f} "
+          f"GiB) on vs {peak0} B ({peak0 / 2**30:.2f} GiB) off ({card})", flush=True)
+    if not (loss_rel <= F32_LOSS_REL_TOL and stats_rel <= REMAT_STATS_REL
+            and all(v["cos"] >= F32_GRAD_MIN_COS and abs(v["norm_ratio"] - 1) <= 1e-3
+                    for v in upd.values())):
+        raise AssertionError(f"remat: loss {loss_rel}, update {upd}, statistics {stats_rel}")
+    return {"loss_rel": loss_rel, "update": upd, "stats_rel": stats_rel,
+            "peak_bytes": {"remat": peak1, "plain": peak0}}
+
+
+def _sthsth_cli_args(*extra) -> list:
+    return ["--config", os.path.join(ROOT, "configs", "sthsth_default.yaml"),
+            "run.synthetic_data=true", f"run.synthetic_videos={STH_CLI_VIDEOS}",
+            "loader.cache=device", f"loader.batch_size={STH_CLI_B}", *extra]
+
+
+def sthsth_cli_phase(device, card: str) -> dict:
+    """Phase 10: the CLI's run.family=sthsth (configs/sthsth_default.yaml,
+    the recipe's discrete BatchNorm-encoder policy, TSN groups, bf16, B=
+    STH_CLI_B, STH_CLI_VIDEOS synthetic dual-rate clips in the device
+    cache): stage 1, stage 2 warm-started from it, stage 3 from stage 2, one
+    epoch each, then evaluate with the learned, random and center policies,
+    each with the launch counts set to 0 just before: one patch launch a
+    stage-1/3 step and eval batch, two a stage-2 step, no fused-block
+    launch; no frame byte from the host after the fill; finite results."""
+    import tempfile
+
+    import torch
+
+    from adafocus_torch.cli import evaluate as cli_evaluate
+    from adafocus_torch.cli import train as cli_train
+
+    out = {"stages": {}, "evaluate": {}}
+    n_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "cli.log")
+        prev = None
+        for stage in STH_STAGES:
+            args = _sthsth_cli_args(f"run.stage={stage}", "run.epochs=1",
+                                    f"run.ckpt_dir={tmp}/s{stage}",
+                                    *([f"run.warm_start={prev}"] if prev else []))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            _launch_counts(reset=True)
+            res = _run_cli(cli_train.main, args, log)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            steps = sum(e["steps"] for e in res["epochs"])
+            want = (2 if stage == 2 else 1) * steps + n_val
+            if launches != {"extract_patches": want, "fused_inverted_residual": 0,
+                            "fused_bottleneck": 0}:
+                raise AssertionError(f"sth-sth CLI stage {stage}: launches {launches}, want "
+                                     f"{want} patch launches ({steps} steps, {n_val} eval "
+                                     "batches)")
+            if res["host_frame_bytes"] or not math.isfinite(res["best_acc"]):
+                raise AssertionError(f"sth-sth CLI stage {stage}: {res['host_frame_bytes']} B "
+                                     f"from the host, best_acc {res['best_acc']}")
+            peak = torch.cuda.max_memory_allocated(device)
+            out["stages"][stage] = {"epochs": res["epochs"], "launches": launches,
+                                    "best_acc": res["best_acc"], "peak_bytes": peak}
+            print(f"CLI sth-sth train stage {stage} bf16 B={STH_CLI_B}, {STH_CLI_VIDEOS} "
+                  f"synthetic dual-rate videos from the device cache: videos/s "
+                  f"{[e['videos_per_s'] for e in res['epochs']]!r} (loader, batch prep and "
+                  f"step, a cold epoch); patch launches {launches['extract_patches']} ({steps} "
+                  f"steps, {n_val} eval batches); peak memory {peak} B ({peak / 2**30:.2f} "
+                  f"GiB); best acc {res['best_acc']!r} ({card})", flush=True)
+            del res
+            torch.cuda.empty_cache()
+            prev = f"{tmp}/s{stage}"
+        for policy in CLI_POLICIES:
+            args = _sthsth_cli_args(f"run.resume={prev}", f"run.ckpt_dir={tmp}/ev_{policy}",
+                                    f"run.eval_policy={policy}")
+            _launch_counts(reset=True)
+            res = _run_cli(cli_evaluate.main, args, log)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            if launches["extract_patches"] != n_val or \
+                    not all(math.isfinite(v) for v in res.values()):
+                raise AssertionError(f"sth-sth CLI evaluate {policy}: {res}, launches {launches}")
+            out["evaluate"][policy] = {"results": res, "launches": launches}
+        print(f"CLI sth-sth evaluate bf16 B={STH_CLI_B} of stage 3: " + "; ".join(
+            f"{p} {json.dumps(v['results'])} ({v['launches']['extract_patches']} patch "
+            "launches)" for p, v in out["evaluate"].items()) + f" ({card})", flush=True)
+    return out
+
+
+def sthsth_train_phase(device, card: str) -> dict:
+    """Phase 10 as a whole. The remat check and the CLI run with cuDNN's
+    autotuner off, the CLI's setting (phase 5 turned it on for this
+    process): with it on, the plain step's peak memory grows by the
+    workspaces of the algorithms it picks."""
+    import torch
+
+    out = {"steps": sthsth_train_timed(device, card)}
+    out["discrete_ratio"] = sthsth_discrete_ratio(device, card)
+    out["precision"] = sthsth_precisions(device)
+    out["sampler"] = check_continuous_sampler(device)
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        out["remat"] = check_sthsth_remat(device, card)
+        out["cli"] = sthsth_cli_phase(device, card)
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1886,12 +2368,23 @@ def main() -> int:
                  f"{cli['components']['step_only_videos_per_s']!r}" if stage == 1 else "")
               + f" ({card})", flush=True)
     done("phase 9")
-    # each kernel's count from the run of this slice's main path, the CLI's
-    # stage 1 (the patch kernel; the CLI runs the cuDNN path), and for the
-    # blocks the matched sth-sth forward's fused path; the counts of the
+    sthsth = sthsth_train_phase(device, card)
+    done("phase 10")
+    # each kernel's count from the run of this slice's main path, the sth-sth
+    # CLI's stage 1 (the patch kernel; the CLI runs the cuDNN path), and for
+    # the blocks the matched sth-sth forward's fused path; the counts of the
     # other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
-    paths = {**{f"CLI train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps and "
+    sth_cli = sthsth["cli"]
+    n_sth_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
+    paths = {**{f"CLI sth-sth train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
+                f"and {n_sth_val} eval batches": v["launches"]
+                for st, v in sth_cli["stages"].items()},
+             **{f"CLI sth-sth evaluate {p}, {n_sth_val} batches": v["launches"]
+                for p, v in sth_cli["evaluate"].items()},
+             **{f"train sth-sth stage {st}, {n_steps} steps": v["launches"]
+                for st, v in sthsth["steps"].items()},
+             **{f"CLI train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps and "
                 f"{-(-CLI_VIDEOS // CLI_B) * len(v['epochs'])} eval batches": v["launches"]
                 for st, v in cli["stages"].items()},
              **{f"CLI evaluate {p}, {-(-CLI_VIDEOS // CLI_B)} batches": v["launches"]
@@ -1905,7 +2398,7 @@ def main() -> int:
                 for k, v in train_launches.items()},
              f"train stage 2, {n_steps} steps": stage2["launches"]}
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
-    rows[0]["launches"] = cli["stages"][1]["launches"]["extract_patches"]
+    rows[0]["launches"] = sth_cli["stages"][1]["launches"]["extract_patches"]
     rows[0]["matched"] = {
         "ms": patch_matched["us"] / 1e3, "plain_ms": patch_matched["plain_us"] / 1e3,
         "bound_ms": patch_matched["bound_us"] / 1e3, "bound_by": "bytes",
@@ -1927,6 +2420,7 @@ def main() -> int:
     print(json.dumps({"matched": matched}), flush=True)
     print(json.dumps({"port_bench": bench}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"sthsth_train": sthsth}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

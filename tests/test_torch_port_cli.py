@@ -92,15 +92,15 @@ def test_config_fields_equal_jax():
 
 
 @pytest.mark.parametrize("override,item", [
-    ("model.frame_budget=4", 11), ("model.plus_rl=true", 11), ("model.remat=true", 10),
-    ("model.partial_bn=true", 10)])
+    ("model.frame_budget=4", 11), ("model.plus_rl=true", 11), ("model.selector_hidden=128", 11),
+    ("model.classifier=linear", 10)])
 def test_config_refuses_unported_keys(override, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tconfig.load_config(None, [override])
 
 
 @pytest.mark.parametrize("override,item", [
-    ("run.family=sthsth", 10), ("run.host_devices=4", 12), ("run.multihost=true", 12),
+    ("model.classifier=linear", 10), ("run.host_devices=4", 12), ("run.multihost=true", 12),
     ("run.platform=tpu", 12), ("run.quantize=int8", 14)])
 def test_cli_refuses_unported_paths(override, item, tmp_path):
     args = SYNTH + [f"run.ckpt_dir={tmp_path}", override]

@@ -158,12 +158,16 @@ def test_config_refuses_unported_families(field, value):
         with pytest.raises(NotImplementedError, match=field):
             tgfv.GFVConfig(**{field: value})
         return
-    # the sth-sth parts serve (tests/test_torch_port_sthsth.py); their
-    # training is not ported yet, and the training steps refuse them
+    # the sth-sth parts serve (tests/test_torch_port_sthsth.py) and train
+    # (tests/test_torch_port_sthsth_train.py): the ActivityNet steps take
+    # them, but for the consensus head, which trains through
+    # train.stages_sthsth
     from adafocus_torch.train import stages as tstages
 
     cfg = dataclasses.replace(tgfv.flagship(tiny=True), **{field: value})
-    assert cfg.serving_only
     state = tstages.create_train_state(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="sth-sth"):
+    if field == "classifier":
+        with pytest.raises(ValueError, match="stages_sthsth"):
+            tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+    else:
         tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)

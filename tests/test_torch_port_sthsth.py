@@ -184,8 +184,14 @@ def test_policy_rollout_div_matches_jax(sthsth_pair, video_div):
     np.testing.assert_allclose(got["value"].numpy(), np.asarray(want["value"]),
                                atol=ACTION_TOL, rtol=1e-5)
     assert not got["action_idx"].any() and not got["logprob"].any()
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="continuous"):
-        model.policy_rollout_div(torch.from_numpy(fmap), "sample", torch.Generator())
+    # sampled: a Gaussian draw around the greedy mean, clamped to [0, 1]
+    # (held against JAX's with its noise in tests/test_torch_port_sthsth_train.py)
+    with torch.inference_mode():
+        sampled = model.policy_rollout_div(torch.from_numpy(fmap), "sample",
+                                           torch.Generator().manual_seed(0))
+    assert sampled["actions"].shape == (2, video_div, 2)
+    assert 0 <= sampled["actions"].min() and sampled["actions"].max() <= 1
+    assert torch.isfinite(sampled["logprob"]).all() and sampled["logprob"].any()
 
 
 @pytest.mark.parametrize("fused,with_glancer", [("auto", True), ("auto", False),
@@ -254,12 +260,14 @@ def test_weight_bridge_carries_sthsth_tree(sthsth_pair):
 
 
 def test_training_refuses_sthsth_config():
+    """A consensus-head model trains through train.stages_sthsth; the
+    ActivityNet steps refuse it."""
     cfg = tgfv.GFVConfig(**{**dataclasses.asdict(tgfv.flagship(tiny=True)),
                             "classifier": "consensus", "tsm": True,
                             "num_frames_focuser": 4})
     state = tstages.create_train_state(cfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="sth-sth"):
+    with pytest.raises(ValueError, match="stages_sthsth"):
         tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
     state2 = tstages.create_train_state(cfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sth-sth"):
+    with pytest.raises(ValueError, match="stages_sthsth"):
         tstages.make_stage2_step(state2.model, state2.ppo)

@@ -161,8 +161,12 @@ def test_stage_freeze_matrix():
         assert toptim.stage_trainable(stage) == joptim.stage_trainable(stage)
     with pytest.raises(ValueError, match="PPO"):
         toptim.make_stage_optimizer(model, 2, toptim.OptimConfig())
-    with pytest.raises(NotImplementedError):
-        toptim.make_stage_optimizer(model, 1, toptim.OptimConfig(tsn_policies=True))
+    # the TSN groups (the sth-sth recipe) split the focuser alone
+    opt, _ = toptim.make_stage_optimizer(model, 1, toptim.OptimConfig(tsn_policies=True))
+    assert [g["name"] for g in opt.param_groups] == [
+        "fc", "tsn_first_conv_weight", "tsn_normal_weight", "tsn_normal_bias", "tsn_bn"]
+    assert {id(p) for g in opt.param_groups[1:] for p in g["params"]} == \
+        {id(p) for p in model.focuser.parameters()}
 
 
 def test_metrics_match_jax():
