@@ -21,6 +21,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from adafocus_torch.models.gfv import GFV, GFVConfig, inference
+from adafocus_torch.models.gfv_plus import inference_plus
 from adafocus_torch.models.gfv_sthsth import inference_sthsth
 
 # the reference's best published GPU throughput: AdaFocus-TSM at 144^2
@@ -45,6 +46,18 @@ def sthsth_cfg(patch: int, dtype: torch.dtype = torch.bfloat16) -> GFVConfig:
     )
 
 
+def plus_cfg(point=(96, 8), dtype: torch.dtype = torch.bfloat16) -> GFVConfig:
+    """An AdaFocus+ frontier point (patch, frame budget K of 16) of the
+    ActivityNet model (a copy of benchmarks/run_benchmarks.py ``plus_cfg``
+    over its ``actnet_cfg``): 16 frames at 224^2 glanced, K of them focused
+    at ``patch``^2, 49 anchors, 200 classes; the ST selector of width 256."""
+    patch, budget = point
+    return GFVConfig(
+        num_classes=200, num_frames=16, image_size=224, glance_size=224,
+        patch_size=patch, action_dim=49, frame_budget=budget, dtype=dtype,
+    )
+
+
 def make_data(cfg: GFVConfig, batch: int, device=None, seed: int = 0
               ) -> Dict[str, torch.Tensor]:
     """A batch of inputs in ``cfg.dtype``, standard normal from a seeded
@@ -64,8 +77,12 @@ def make_data(cfg: GFVConfig, batch: int, device=None, seed: int = 0
 def inference_fn(model: GFV, fused: str = "auto") -> Callable[..., torch.Tensor]:
     """The family's deployment forward on the model's device:
     ``fn(frames, frames_small) -> logits`` (``inference_sthsth`` for a
-    consensus-head model, ``inference`` otherwise). AdaFocus+ is not ported
-    (its ``GFVConfig.frame_budget`` raises)."""
+    consensus-head model, ``inference_plus`` for a frame-budget model,
+    ``inference`` otherwise). AdaFocus+ has no fused dispatch, as in the JAX
+    package: it runs the library convs whatever ``fused`` says."""
+    if model.cfg.frame_budget > 0:
+        return lambda frames, frames_small: inference_plus(model, frames, frames_small,
+                                                           device=model.device)
     family = inference_sthsth if model.cfg.sthsth else inference
 
     def fn(frames: torch.Tensor, frames_small: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ target tracks of ``run.oracle_gt``, a miniact ``gt.npz``); these bracket the
 learned policy's accuracy. ``run.family=sthsth`` evaluates the sth-sth
 family (``inference_sthsth``; one action a video division, an oracle
 division's the mean of its frames' targets where the target is present).
+A frame-budget (AdaFocus+) model evaluates through ``inference_plus``; the
+policy overrides are not defined for it and exit, as the JAX package's do.
 The model keeps float32 parameters and computes in ``model.dtype``, as a
 training run's does. On the GPU unless ``run.platform=cpu``.
 ``run.quantize`` (int8 serving) is ROADMAP item 14.
@@ -44,6 +46,7 @@ from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import patch_offsets, random_patch_actions
 from adafocus_torch.train import checkpoint as ckpt
 from adafocus_torch.train.stages import make_eval_step
+from adafocus_torch.train.stages_plus import make_plus_eval_step
 from adafocus_torch.train.stages_sthsth import make_sthsth_eval_step
 
 
@@ -84,6 +87,9 @@ def make_eval_step_forced(model: GFV, mode: str):
     (logits, {"top1", "top5"})``."""
     if mode not in ("random", "center", "oracle"):
         raise ValueError(f"unknown forced policy {mode!r}")
+    if model.cfg.frame_budget > 0:
+        raise SystemExit("run.eval_policy overrides are not defined for AdaFocus+ "
+                         "frame-budget models")
     sthsth = model.cfg.sthsth
 
     def step(batch, generator):
@@ -165,8 +171,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             or ckpt.load_checkpoint(cfg.run.resume)
         if tree is None:
             raise SystemExit(f"no checkpoint under {cfg.run.resume}")
-        for name in ckpt.COMPONENTS:
-            getattr(model, name).load_state_dict(tree["components"][name])
+        ckpt.load_components(model, tree)
         log(f"loaded checkpoint from {cfg.run.resume}")
     else:
         log("WARNING: run.resume not set — evaluating a fresh init")
@@ -193,8 +198,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if policy_mode != "learned":
         eval_step = make_eval_step_forced(model, policy_mode)
     else:
-        learned = make_sthsth_eval_step(model) if cfg.run.family == "sthsth" \
-            else make_eval_step(model)
+        if cfg.run.family == "sthsth":
+            learned = make_sthsth_eval_step(model)
+        elif cfg.model.frame_budget > 0:
+            learned = make_plus_eval_step(model)
+        else:
+            learned = make_eval_step(model)
 
         def eval_step(batch, generator):
             return learned(batch)

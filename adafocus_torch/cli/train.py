@@ -5,7 +5,10 @@ every stage of both families, one entry point.
 
 Stage selection is ``run.stage`` (0..3), the family ``run.family``
 ('actnet', or 'sthsth' with ``model.classifier=consensus``: stages 1..3,
-dual-rate batches; ``configs/sthsth_default.yaml``). The run is on the GPU unless
+dual-rate batches; ``configs/sthsth_default.yaml``). ``model.frame_budget=K``
+trains AdaFocus+ (stages 1 and 3 ``make_plus_train_step``; stage 2 the joint
+PPO with ``model.plus_rl=true``, else the base stage 2 over all T frames;
+its eval ``make_plus_eval_step``). The run is on the GPU unless
 ``run.platform=cpu``; without a GPU and without that flag it raises. Each
 epoch streams the training loader through the batch prep on the device
 (prefetched on a thread), trains, then evaluates and writes the
@@ -13,8 +16,8 @@ epoch streams the training loader through the batch prep on the device
 ``run.warm_start`` loads the previous stage's components
 (``train/checkpoint.py STAGE_LOADS``), ``run.resume`` continues a run.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``model.frame_budget>0`` (11), several devices or hosts (12).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+several devices or hosts (12).
 """
 
 from __future__ import annotations
@@ -49,6 +52,11 @@ from adafocus_torch.train.stages import (
     make_stage2_step,
     make_stage_train_step,
 )
+from adafocus_torch.train.stages_plus import (
+    make_plus_eval_step,
+    make_plus_stage2_joint_step,
+    make_plus_train_step,
+)
 from adafocus_torch.train.stages_sthsth import (
     make_sthsth_eval_step,
     make_sthsth_stage2_step,
@@ -68,11 +76,16 @@ def build_steps(cfg: ExperimentConfig, state) -> tuple:
             train = make_sthsth_train_step(model, stage, state.optimizer, state.scheduler)
         eval_step = make_sthsth_eval_step(model)
         return train, lambda batch, generator: eval_step(batch)
-    if stage == 2:
+    plus = cfg.model.frame_budget > 0
+    if plus and stage in (1, 3):
+        train = make_plus_train_step(model, stage, state.optimizer, state.scheduler)
+    elif plus and stage == 2 and cfg.model.plus_rl:
+        train = make_plus_stage2_joint_step(model, state.ppo)
+    elif stage == 2:
         train = make_stage2_step(model, state.ppo)
     else:
         train = make_stage_train_step(model, stage, state.optimizer, state.scheduler)
-    eval_step = make_eval_step(model)
+    eval_step = make_plus_eval_step(model) if plus else make_eval_step(model)
     return train, lambda batch, generator: eval_step(batch)
 
 
@@ -81,8 +94,6 @@ def build_state(cfg: ExperimentConfig, steps_per_epoch: int, device: torch.devic
     """The stage's train state (weights from the run's seed), then the full
     resume of ``run.resume`` or the warm start of ``run.warm_start``.
     Returns (state, start_epoch, best_acc)."""
-    if cfg.model.frame_budget > 0:
-        raise NotImplementedError("model.frame_budget > 0 (AdaFocus+) is ROADMAP item 11")
     stage = cfg.run.stage
     # the run's epochs and the loader's steps an epoch set the schedule
     # (the JAX package's make_tx; stage 2 trains by PPO's Adam instead)

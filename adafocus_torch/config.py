@@ -6,8 +6,7 @@ A typed ``ExperimentConfig`` tree over the port's ``GFVConfig``,
 loadable from the JAX package's YAML files unchanged
 (``configs/actnet_default.yaml``), overridable with ``section.key=value``
 arguments and echoed at start-up. ``model.dtype=bfloat16|float32`` maps to
-torch dtypes. A model key of the JAX package whose part is not ported yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+torch dtypes. Every model key of the JAX package is a field here.
 """
 
 from __future__ import annotations
@@ -25,15 +24,6 @@ from adafocus_torch.ppo.core import PPOConfig
 from adafocus_torch.train.optim import OptimConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-# keys of the JAX package's configuration whose parts the port has not yet,
-# with the ROADMAP item that ports them; setting one to anything but its
-# default raises
-UNPORTED = {
-    ("model", "frame_budget"): (0, 11),
-    ("model", "plus_rl"): (False, 11),
-    ("model", "selector_hidden"): (256, 11),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,25 +90,11 @@ def _coerce(value: str, target: Any) -> Any:
     return value
 
 
-def _check_ported(section: str, field: str, value: Any) -> bool:
-    """True when ``section.field`` is a field of the port; raises for a key
-    of the JAX package whose part is not ported, set off its default."""
-    if (section, field) in UNPORTED:
-        default, item = UNPORTED[section, field]
-        if (_coerce(value, default) if isinstance(value, str) else value) != default:
-            raise NotImplementedError(
-                f"{section}.{field}={value!r} is not ported yet (ROADMAP item {item})")
-        return False
-    return True
-
-
 def _replace_fields(cfg: ExperimentConfig, section: str, fields: Dict[str, Any]
                     ) -> ExperimentConfig:
     sub = getattr(cfg, section)
     kwargs = {}
     for k, v in fields.items():
-        if not _check_ported(section, k, v):
-            continue
         current = getattr(sub, k)
         if isinstance(v, str) and not isinstance(current, str):
             v = _coerce(v, current)

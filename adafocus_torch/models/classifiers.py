@@ -6,9 +6,12 @@ The hidden state is an explicit carry; ``step`` is one MDP step and
 ``lookahead`` one step whose hidden is not carried (the stage-2 random-patch
 baseline).
 
+``LinearClassifier``: a per-frame FC and the log of the mean over time of
+the per-frame softmax (clipped at 1e-12), the consensus log-probabilities
+(B, classes).
+
 ``ConsensusHead`` and ``avg_consensus``, the sth-sth head: dropout and a
 per-frame FC over focuser features, averaged over time by the caller.
-``LinearClassifier`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +51,20 @@ class RecurrentClassifier(nn.Module):
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         """features (B, T, D) -> per-step logits (B, T, classes)."""
         return self.forward_with_hiddens(features)[0]
+
+
+class LinearClassifier(nn.Module):
+    """Per-frame FC; the consensus is the mean of the per-frame softmax
+    probabilities. The JAX package's GFV builds it without dropout."""
+
+    def __init__(self, in_dim: int, num_classes: int):
+        super().__init__()
+        self.fc = nn.Linear(in_dim, num_classes)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        """features (B, T, D) -> consensus log-probabilities (B, classes)."""
+        probs = torch.softmax(self.fc(features), dim=-1).mean(dim=1)
+        return torch.log(probs.clamp_min(1e-12))
 
 
 class ConsensusHead(nn.Module):

@@ -20,6 +20,11 @@ and 12 focus frames, one continuous action per video division
 (``policy_rollout_div``) and a per-frame head (``classify_frame_logits``)
 under sum consensus.
 
+AdaFocus+ (``frame_budget = K > 0``, models/gfv_plus.py) glances at all T
+frames, selects K of them (``frame_scores`` and a top-K, or the
+``select_rollout`` of a PPO-trained selector with ``plus_rl``) and runs the
+policy, extraction and focus on those K only.
+
 The public functions keep the JAX package's layouts: frames are
 channels-last (B, T, S, S, 3), feature maps (B, T, gh, gw, C). Inside, the
 backbones take NCHW views of channels-last memory, which is free.
@@ -43,7 +48,9 @@ import torch
 from torch import nn
 
 from adafocus_torch import default_device
-from adafocus_torch.models.classifiers import ConsensusHead, RecurrentClassifier
+from adafocus_torch.models.classifiers import (
+    ConsensusHead, LinearClassifier, RecurrentClassifier,
+)
 from adafocus_torch.models.fused_inference import fused_enabled, fused_focus, fused_glance
 from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.models.mobilenet import MobileNetV2
@@ -56,9 +63,7 @@ Device = Optional[Union[str, torch.device]]
 
 @dataclasses.dataclass(frozen=True)
 class GFVConfig:
-    """Static model configuration, the fields of the JAX ``GFVConfig`` that
-    the port's two families read. Fields of the parts not ported yet exist
-    so that setting them fails loudly."""
+    """Static model configuration, the fields of the JAX ``GFVConfig``."""
 
     num_classes: int = 200
     num_frames: int = 16          # T, the glancer's frames
@@ -71,9 +76,10 @@ class GFVConfig:
     policy_hidden: int = 1024
     policy_channels: int = 32     # state-encoder 1x1-conv width
     dtype: torch.dtype = torch.bfloat16  # compute and parameter dtype
-    classifier: str = "gru"       # 'gru' (ActivityNet) | 'consensus' (sth-sth)
+    classifier: str = "gru"       # 'gru' | 'linear' (ActivityNet) | 'consensus' (sth-sth)
     continuous_policy: bool = False
     action_std: float = 0.25      # the continuous policy's Gaussian std (training)
+    policy_conv: bool = True      # the state encoder's 1x1 conv; False: the MLP encoder
     policy_bn: bool = False       # BatchNorm after the encoder's 1x1 conv
     tsm: bool = False             # temporal-shift backbones
     video_div: int = 1            # sth-sth: one action per division
@@ -81,23 +87,15 @@ class GFVConfig:
     dropout: float = 0.5          # sth-sth local head's dropout
     partial_bn: bool = False      # TSM partial BatchNorm on the focuser (training)
     remat: bool = False           # per-block recomputation of both backbones
-    # not ported yet: each must keep its default
-    policy_conv: bool = True
-    frame_budget: int = 0
+    frame_budget: int = 0         # AdaFocus+: the focuser sees K of the T frames
+    selector_hidden: int = 256    # AdaFocus+ frame selector's GRU width
+    plus_rl: bool = False         # AdaFocus+: the selector is a PPO agent
+                                  # (SelectorActorCritic), not the ST top-K
 
     def __post_init__(self):
-        # field: (set off its default, the ROADMAP item that ports it)
-        unported = {
-            "classifier": (self.classifier not in ("gru", "consensus"), 10),
-            "policy_conv": (not self.policy_conv, 10),
-            "frame_budget": (self.frame_budget > 0, 11),
-        }
-        for name, (is_set, item) in unported.items():
-            if is_set:
-                raise NotImplementedError(
-                    f"GFVConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(ROADMAP item {item})"
-                )
+        if self.classifier not in ("gru", "linear", "consensus"):
+            raise ValueError(f"unknown classifier {self.classifier!r}: "
+                             "'gru', 'linear' or 'consensus'")
 
     @property
     def t_focuser(self) -> int:
@@ -185,14 +183,26 @@ class GFV(nn.Module):
             policy_in, (g, g), action_dim=cfg.action_dim,
             hidden_dim=cfg.policy_hidden, encoder_channels=cfg.policy_channels,
             continuous=cfg.continuous_policy, encoder_bn=cfg.policy_bn,
-            action_std=cfg.action_std,
+            action_std=cfg.action_std, encoder_conv=cfg.policy_conv,
         )
         if cfg.sthsth:
             self.classifier = ConsensusHead(cfg.focus_dim, cfg.num_classes, cfg.dropout)
+        elif cfg.classifier == "linear":
+            self.classifier = LinearClassifier(cfg.fused_dim, cfg.num_classes)
         else:
             self.classifier = RecurrentClassifier(
                 cfg.fused_dim, cfg.num_classes, hidden_dim=cfg.hidden_dim
             )
+        if cfg.frame_budget > 0:   # the AdaFocus+ temporal selection head
+            from adafocus_torch.models.gfv_plus import FrameSelector, SelectorActorCritic
+
+            if cfg.frame_budget > cfg.num_frames:
+                raise ValueError(f"frame_budget {cfg.frame_budget} > num_frames "
+                                 f"{cfg.num_frames}")
+            if cfg.plus_rl:
+                self.selector_ac = SelectorActorCritic(cfg.glance_dim, cfg.selector_hidden)
+            else:
+                self.selector = FrameSelector(cfg.glance_dim, cfg.selector_hidden)
         self.reset_parameters(generator)
         self.eval()
         self.to(device=dev, dtype=self.param_dtype, memory_format=torch.channels_last)
@@ -293,6 +303,19 @@ class GFV(nn.Module):
         stacked = fmap.reshape(b, d, tg // d, gh, gw, c).movedim(2, 4)
         return stacked.reshape(b, d, gh, gw, (tg // d) * c)
 
+    def frame_scores(self, pooled: torch.Tensor) -> torch.Tensor:
+        """AdaFocus+ selector: pooled glance features (B, T, 1280) -> frame
+        scores (B, T) float32 at least."""
+        return self.selector(pooled)
+
+    def select_rollout(self, pooled: torch.Tensor, mode: str = "sample",
+                       generator: Optional[torch.Generator] = None,
+                       actions: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """AdaFocus+ joint-RL temporal policy (``plus_rl``): the K-slot
+        sequential frame selection (``gfv_plus.SelectorActorCritic.rollout``)."""
+        return self.selector_ac.rollout(pooled, self.cfg.frame_budget, mode, generator,
+                                        actions)
+
     # ---- phase 3: focus + classify ---------------------------------------
 
     def focus(self, patches: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -319,6 +342,10 @@ class GFV(nn.Module):
 
     def classify_seq(self, fused: torch.Tensor) -> torch.Tensor:
         """(B, T, D) -> per-step logits (B, T, classes)."""
+        return self.classifier(fused)
+
+    def classify_linear(self, fused: torch.Tensor) -> torch.Tensor:
+        """The linear head: (B, T, D) -> consensus log-probabilities (B, classes)."""
         return self.classifier(fused)
 
     def classifier_step(self, hidden: torch.Tensor, feature: torch.Tensor
@@ -366,8 +393,12 @@ def extract_for_frames(frames: torch.Tensor, actions: torch.Tensor,
 
 def fuse_and_classify(model: GFV, pooled: torch.Tensor, local: torch.Tensor
                       ) -> torch.Tensor:
-    """concat([pooled 1280 | local 2048]) -> GRU classifier."""
+    """concat([pooled 1280 | local 2048]) -> the GRU classifier's per-step
+    logits (B, T, classes), or the linear head's log-probabilities (B,
+    classes)."""
     fused = torch.cat([pooled, local], dim=-1).to(model.cfg.dtype)
+    if model.cfg.classifier == "linear":
+        return model.classify_linear(fused)
     return model.classify_seq(fused)
 
 
@@ -400,8 +431,8 @@ def inference(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
     as one hand-written kernel (models/fused_inference.py); 'auto' and
     'off' run the library convs, as 'auto' does in the JAX package.
     Runs on ``device`` (the GPU unless ``device="cpu"``), where the model
-    must already be. Returns per-step logits (B, T, classes); the last step
-    is the prediction.
+    must already be. Returns per-step logits (B, T, classes), the last step
+    the prediction (the linear head: log-probabilities (B, classes)).
     """
     if model.cfg.sthsth:
         raise ValueError("a consensus-head (sth-sth) model serves through "
@@ -439,7 +470,8 @@ def forward_random(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
     and classify, both backbones in train mode when ``train`` (their
     running statistics advance). ``actions`` (B, T, 2) replaces the draw.
     Records autograd as the caller's grad mode says; runs under
-    ``model.autocast()``. Returns per-step logits (B, T, classes)."""
+    ``model.autocast()``. Returns per-step logits (B, T, classes) (the
+    linear head: log-probabilities (B, classes))."""
     cfg = model.cfg
     b, t = frames_small.shape[:2]
     if actions is None:

@@ -1,7 +1,7 @@
 """Recurrent actor-critic policy (counterpart of adafocus_tpu/models/policy.py).
 
 A 1x1-conv state encoder over the glance feature map (with BatchNorm in the
-sth-sth variant), a GRU carried across the policy's steps, a linear actor
+sth-sth variant; or the MLP encoder, ``policy_conv=False``), a GRU carried across the policy's steps, a linear actor
 and a scalar critic.
 
 - Discrete: the actor scores a K-point anchor grid; actions are the greedy
@@ -52,7 +52,8 @@ def action_grid(action_dim: int, device=None) -> torch.Tensor:
 
 class StateEncoder(nn.Module):
     """Glance feature map (N, h, w, C) -> flat policy state (N, STATE_DIM):
-    1x1 conv, ReLU, flatten in (h, w, c) order, Dense, ReLU.
+    1x1 conv, ReLU, flatten in (h, w, c) order, Dense, ReLU; or, without
+    ``use_conv`` (the MLP encoder), the mean over the map, Dense, ReLU.
 
     ``use_bn`` (the sth-sth encoder): the conv has no bias and BatchNorm
     (flax's: momentum 0.9, eps 1e-5) follows it, before the ReLU. As in the
@@ -63,13 +64,19 @@ class StateEncoder(nn.Module):
     weights line up with a bridged flax tree."""
 
     def __init__(self, in_channels: int, map_hw: Tuple[int, int],
-                 conv_channels: int = 32, use_bn: bool = False):
+                 conv_channels: int = 32, use_bn: bool = False, use_conv: bool = True):
         super().__init__()
+        if not use_conv:
+            self.proj = self.bn = None
+            self.fc = nn.Linear(in_channels, STATE_DIM)
+            return
         self.proj = nn.Conv2d(in_channels, conv_channels, 1, bias=not use_bn)
         self.bn = BatchNorm2d(conv_channels) if use_bn else None
         self.fc = nn.Linear(map_hw[0] * map_hw[1] * conv_channels, STATE_DIM)
 
     def forward(self, fmap: torch.Tensor) -> torch.Tensor:
+        if self.proj is None:
+            return F.relu(self.fc(fmap.mean(dim=(1, 2))))
         x = self.proj(fmap.permute(0, 3, 1, 2))
         if self.bn is not None:
             x = self.bn(x)
@@ -86,11 +93,13 @@ class ActorCritic(nn.Module):
     def __init__(self, in_channels: int, map_hw: Tuple[int, int],
                  action_dim: int = 49, hidden_dim: int = 1024,
                  encoder_channels: int = 32, continuous: bool = False,
-                 encoder_bn: bool = False, action_std: float = 0.1):
+                 encoder_bn: bool = False, action_std: float = 0.1,
+                 encoder_conv: bool = True):
         super().__init__()
         self.continuous = continuous
         self.action_std = action_std
-        self.encoder = StateEncoder(in_channels, map_hw, encoder_channels, encoder_bn)
+        self.encoder = StateEncoder(in_channels, map_hw, encoder_channels, encoder_bn,
+                                    encoder_conv)
         self.gru = GRUCell(STATE_DIM, hidden_dim)
         self.actor = nn.Linear(hidden_dim, 2 if continuous else action_dim)
         self.critic = nn.Linear(hidden_dim, 1)

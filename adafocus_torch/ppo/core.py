@@ -57,8 +57,9 @@ class PPOConfig:
 
 @dataclasses.dataclass
 class PPOState:
-    """The policy learner: the policy module (trained in place), its Adam,
-    the configuration and the count of updates."""
+    """The policy learner: the policy module (trained in place; AdaFocus+'s
+    joint learner is a ``ModuleDict`` of the patch policy and the selector
+    actor-critic), its Adam, the configuration and the count of updates."""
 
     policy: nn.Module
     optimizer: torch.optim.Adam
@@ -124,17 +125,17 @@ def evaluate_episode(policy: nn.Module, fmaps_tb: torch.Tensor, actions_tb: torc
     return logp.float(), value.float(), entropy.float()
 
 
-def ppo_loss(policy: nn.Module, memory: Dict[str, torch.Tensor], cfg: PPOConfig
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Clipped-surrogate PPO loss of a time-major episode: ``memory`` holds
-    fmaps, actions (grid indices or continuous actions), old_logprob and
-    returns (discounted and normalised), each (T, B, ...)."""
-    logp, values, entropy = evaluate_episode(policy, memory["fmaps"], memory["actions"])
-    advantages = memory["returns"] - values.detach()
-    ratios = torch.exp(logp - memory["old_logprob"])
+def clipped_objective(logp: torch.Tensor, values: torch.Tensor, entropy: torch.Tensor,
+                      old_logprob: torch.Tensor, returns: torch.Tensor, cfg: PPOConfig
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The clipped-surrogate PPO loss and its terms from an evaluate pass's
+    logprobs, values and entropies and the episode's behavior logprobs and
+    returns (all the same shape)."""
+    advantages = returns - values.detach()
+    ratios = torch.exp(logp - old_logprob)
     surr1 = ratios * advantages
     surr2 = ratios.clamp(1.0 - cfg.eps_clip, 1.0 + cfg.eps_clip) * advantages
-    value_loss = ((values - memory["returns"]) ** 2).mean()
+    value_loss = ((values - returns) ** 2).mean()
     policy_loss = -torch.minimum(surr1, surr2).mean()
     ent = entropy.mean()
     loss = policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * ent
@@ -143,11 +144,22 @@ def ppo_loss(policy: nn.Module, memory: Dict[str, torch.Tensor], cfg: PPOConfig
                   "ppo/ratio_mean": ratios.mean()}
 
 
+def ppo_loss(policy: nn.Module, memory: Dict[str, torch.Tensor], cfg: PPOConfig
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Clipped-surrogate PPO loss of a time-major episode: ``memory`` holds
+    fmaps, actions (grid indices or continuous actions), old_logprob and
+    returns (discounted and normalised), each (T, B, ...)."""
+    logp, values, entropy = evaluate_episode(policy, memory["fmaps"], memory["actions"])
+    return clipped_objective(logp, values, entropy, memory["old_logprob"], memory["returns"],
+                             cfg)
+
+
 def ppo_update(state: PPOState, memory: Dict[str, torch.Tensor],
-               autocast: Callable[[], ContextManager] = contextlib.nullcontext
-               ) -> Dict[str, torch.Tensor]:
+               autocast: Callable[[], ContextManager] = contextlib.nullcontext,
+               loss_fn: Callable = ppo_loss) -> Dict[str, torch.Tensor]:
     """``cfg.k_epochs`` epochs of clipped PPO on one episode, each one Adam
-    step; the loss forward runs under ``autocast()`` (``GFV.autocast`` for a
+    step; the loss, ``loss_fn(state.policy, memory, cfg)`` (``ppo_loss``
+    unless given), runs under ``autocast()`` (``GFV.autocast`` for a
     model that computes in another dtype than its parameters'), its
     backward outside. The policy is in train mode meanwhile, so that a
     BatchNorm encoder normalises with batch statistics and advances its
@@ -157,7 +169,7 @@ def ppo_update(state: PPOState, memory: Dict[str, torch.Tensor],
         for _ in range(state.cfg.k_epochs):
             state.optimizer.zero_grad(set_to_none=True)
             with autocast():
-                loss, metrics = ppo_loss(state.policy, memory, state.cfg)
+                loss, metrics = loss_fn(state.policy, memory, state.cfg)
             loss.backward()
             state.optimizer.step()
     state.step += 1

@@ -2,7 +2,8 @@
 adafocus_tpu/train/checkpoint.py).
 
 A checkpoint is one ``torch.save`` file: each component of the GFV
-(``glancer``, ``focuser``, ``classifier``, ``policy``) as its own
+(``glancer``, ``focuser``, ``classifier``, ``policy``, and AdaFocus+'s
+``selector`` or ``selector_ac`` where the model has one) as its own
 ``state_dict`` (BatchNorm's running statistics inside it), the SGD
 optimizer and the ``LambdaLR`` schedule of a supervised stage, the PPO
 learner of stage 2 (its Adam and update count; its policy is the model's),
@@ -28,7 +29,7 @@ import torch
 
 # components each stage loads from the previous stage's checkpoint (the JAX
 # package's table; AdaFocus+'s 'selector' and 'selector_ac' are skipped
-# while absent)
+# where the model or the checkpoint has none)
 STAGE_LOADS = {
     0: (),
     1: ("glancer", "focuser"),
@@ -36,7 +37,8 @@ STAGE_LOADS = {
     3: ("glancer", "focuser", "classifier", "policy", "selector",
         "selector_ac"),
 }
-COMPONENTS = ("glancer", "focuser", "classifier", "policy")
+COMPONENTS = ("glancer", "focuser", "classifier", "policy")   # every model's
+SELECTORS = ("selector", "selector_ac")                         # AdaFocus+'s, one at most
 FILES = {False: "checkpoint.pt", True: "model_best.pt"}
 
 
@@ -44,13 +46,24 @@ def _to_saveable(state) -> Dict[str, Any]:
     """TrainState -> a dict of CPU tensors and plain values."""
     model = state.model
     out: Dict[str, Any] = {
-        "components": {name: getattr(model, name).state_dict() for name in COMPONENTS}}
+        "components": {name: getattr(model, name).state_dict() for name in components_of(model)}}
     if state.optimizer is not None:
         out["optimizer"] = state.optimizer.state_dict()
         out["scheduler"] = state.scheduler.state_dict()
     if state.ppo is not None:
         out["ppo"] = {"optimizer": state.ppo.optimizer.state_dict(), "step": state.ppo.step}
     return out
+
+
+def components_of(model) -> tuple:
+    """The checkpointed components ``model`` has."""
+    return COMPONENTS + tuple(name for name in SELECTORS if hasattr(model, name))
+
+
+def load_components(model, tree: Dict[str, Any]) -> None:
+    """Every component of ``model`` from a checkpoint's (evaluation)."""
+    for name in components_of(model):
+        getattr(model, name).load_state_dict(tree["components"][name])
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -88,8 +101,7 @@ def restore_train_state(state, tree: Dict[str, Any]):
     optimizer with its momentum, the schedule's update count (so that the
     learning rate goes on from where it was), the PPO learner. In place;
     returns ``state``."""
-    for name in COMPONENTS:
-        getattr(state.model, name).load_state_dict(tree["components"][name])
+    load_components(state.model, tree)
     if state.optimizer is not None:
         state.optimizer.load_state_dict(tree["optimizer"])
         state.scheduler.load_state_dict(tree["scheduler"])

@@ -12,8 +12,9 @@ optax evaluates the schedule at the update count, starting at 0; a
 
 Freezing: the JAX package labels a frozen component ``set_to_zero``; here
 its parameters get ``requires_grad=False`` and stay out of the optimizer.
-Stage 2 trains the policy alone, by PPO's Adam (``adafocus_torch.ppo``), and
-has no SGD optimizer.
+Stage 2 trains the policy alone (with AdaFocus+'s ``plus_rl``, the policy and
+the selector actor-critic), by PPO's Adam (``adafocus_torch.ppo``), and has no
+SGD optimizer.
 
 The sth-sth recipe's focuser groups (``tsn_policies``, the reference's
 ``get_optim_policies``): the stem conv's weight, the other conv and fc
@@ -36,7 +37,9 @@ import torch
 from torch import nn
 
 # component -> parameter group, per stage ('ppo': PPO's Adam); a component
-# not listed is frozen ('selector' is the AdaFocus+ head, not ported yet)
+# not listed is frozen. AdaFocus+'s 'selector' (the ST top-K scorer) trains
+# with the classifier; its 'selector_ac' (plus_rl) trains in stage 2 only,
+# in PPO's joint learner (train.stages.joint_learner).
 _STAGE_LABELS: Dict[int, Dict[str, str]] = {
     0: {"glancer": "backbone", "focuser": "backbone", "classifier": "fc",
         "policy": "frozen", "selector": "fc"},

@@ -11,7 +11,8 @@ adafocus_tpu/train/stages.py).
   stage 3  the frozen greedy policy's patches: only the classifier trains.
 
 The sth-sth family (``classifier="consensus"``) has its own steps in
-train/stages_sthsth.py; the pieces both share live here
+train/stages_sthsth.py, AdaFocus+ (``frame_budget > 0``) its stages 1, 3,
+joint stage 2 and eval in train/stages_plus.py; the pieces both share live here
 (``create_train_state``, ``_rollout_time_major``).
 
 A frozen phase runs under ``torch.no_grad()`` with its backbone in eval
@@ -26,6 +27,7 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+from torch import nn
 from torch.nn import functional as F
 
 from adafocus_torch.models.gfv import (
@@ -59,7 +61,9 @@ def create_train_state(cfg: GFVConfig, stage: int, optim: OptimConfig = OptimCon
     """A training GFV (float32 parameters, compute in ``cfg.dtype``; weights
     from ``generator``) on ``device`` (the GPU unless ``device="cpu"``), and
     the optimizer and schedule of ``stage``; for stage 2, the PPO learner
-    of ``ppo`` over the policy, every other component frozen. The sth-sth
+    of ``ppo`` over the policy (AdaFocus+ with ``plus_rl``: one Adam over the
+    policy and the selector actor-critic, ``joint_learner``), every other
+    component frozen. The sth-sth
     family's stage 3 finetunes the focuser and the classifier, so its
     optimizer takes stage 1's freeze matrix, as the JAX package's CLI
     labels it (``cli/train.py make_tx``); ``cfg.partial_bn`` freezes the
@@ -67,9 +71,17 @@ def create_train_state(cfg: GFVConfig, stage: int, optim: OptimConfig = OptimCon
     model = GFV(cfg, device=device, generator=generator, param_dtype=torch.float32)
     if stage == 2:
         freeze_for_stage(model, 2)
-        return TrainState(model, None, None, ppo_init(model.policy, ppo))
+        learner = joint_learner(model) if cfg.frame_budget > 0 and cfg.plus_rl \
+            else model.policy
+        return TrainState(model, None, None, ppo_init(learner, ppo))
     return TrainState(model, *make_stage_optimizer(model, optimizer_stage(cfg, stage), optim,
                                                    partial_bn=cfg.partial_bn))
+
+
+def joint_learner(model: GFV) -> nn.ModuleDict:
+    """AdaFocus+'s joint stage-2 learner: the patch policy and the selector
+    actor-critic, the JAX package's ``{"policy", "selector_ac"}`` tree."""
+    return nn.ModuleDict({"policy": model.policy, "selector_ac": model.selector_ac})
 
 
 def optimizer_stage(cfg: GFVConfig, stage: int) -> int:
@@ -145,7 +157,11 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
                 local = model.focus(patches, train_focuser).reshape(b, t, -1)
             note("focus")
             logits = fuse_and_classify(model, pooled, local)
-            loss = _ce_per_step(logits, labels)
+            if cfg.classifier == "linear":   # consensus log-probabilities (B, classes)
+                logp = logits.to(torch.promote_types(logits.dtype, torch.float32))
+                loss = -logp.gather(-1, labels.long()[:, None]).mean()
+            else:
+                loss = _ce_per_step(logits, labels)
             note("classify")
             if stage == 0:
                 # As the JAX step does (stages.py:146-149, 193-205), the
@@ -163,10 +179,16 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
         note("backward")
         _sgd_step(optimizer, scheduler)
         note("optimizer")
-        top1, top5 = topk_accuracy(logits[:, -1].detach(), labels)
+        top1, top5 = topk_accuracy(_final(logits).detach(), labels)
         return {"loss": loss.detach(), "top1": top1, "top5": top5}
 
     return step
+
+
+def _final(logits: torch.Tensor) -> torch.Tensor:
+    """The prediction: the last step of per-step logits (B, T, classes), or
+    the linear head's log-probabilities (B, classes) as they are."""
+    return logits[:, -1] if logits.dim() == 3 else logits
 
 
 def _sgd_step(optimizer: torch.optim.Optimizer,
@@ -311,8 +333,17 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
     return step
 
 
-def _check_learner(model: GFV, ppo: PPOState) -> None:
-    if ppo.policy is not model.policy:
+def _check_learner(model: GFV, ppo: PPOState, joint: bool = False) -> None:
+    """Raises unless ``ppo`` trains this model's policy or, when ``joint``,
+    its policy and selector actor-critic (``joint_learner``)."""
+    if joint:
+        modules = dict(ppo.policy.named_children()) if isinstance(ppo.policy, nn.ModuleDict) \
+            else {}
+        if modules.keys() != {"policy", "selector_ac"} or modules["policy"] is not model.policy \
+                or modules["selector_ac"] is not getattr(model, "selector_ac", None):
+            raise ValueError("the joint PPO learner must train this model's policy and "
+                             "selector actor-critic (ppo_init(joint_learner(model)))")
+    elif ppo.policy is not model.policy:
         raise ValueError("the PPO learner must train this model's policy (ppo_init(model.policy))")
 
 
@@ -325,7 +356,7 @@ def make_eval_step(model: GFV) -> Callable:
     def step(batch: Dict[str, torch.Tensor]):
         logits = inference(model, batch["frames"], batch["frames_small"],
                            device=model.device)
-        top1, top5 = topk_accuracy(logits[:, -1].float(), batch["labels"])
+        top1, top5 = topk_accuracy(_final(logits).float(), batch["labels"])
         return logits, {"top1": top1, "top5": top5}
 
     return step

@@ -14,7 +14,10 @@ state-dict key by joining its parts with dots and renaming the leaf:
 
 A sth-sth tree crosses the same way: the encoder's ``proj`` kernel has no
 bias there, its ``bn`` takes scale, bias and running statistics, the actor
-is 2 wide, and the consensus head is ``classifier/fc``.
+is 2 wide, and the consensus head is ``classifier/fc``. So do AdaFocus+'s
+``selector`` (``gru``, ``score``) and ``selector_ac`` (``gru``,
+``key_proj``, ``query_proj``, ``score``, ``critic``), the linear head
+(``classifier/fc``) and the MLP state encoder (``encoder/fc`` alone).
 
 The caller converts the flax trees to numpy first (``jax.tree.map(np.asarray,
 ...)``), so nothing here imports JAX. Every leaf is carried, the heads that
@@ -86,7 +89,10 @@ def ppo_state_from_flax(flax_ppo: Any, ppo: PPOState) -> None:
     place: the moments ``mu`` / ``nu`` and the count of its ``optax.adam``
     state become each policy parameter's ``exp_avg`` / ``exp_avg_sq`` and
     ``step`` in ``ppo.optimizer``, and its step count ``ppo.step``. The
-    policy's weights cross with ``gfv_state_dict_from_flax``."""
+    policy's weights cross with ``gfv_state_dict_from_flax``. AdaFocus+'s
+    joint learner (``{"policy", "selector_ac"}`` in JAX, the port's
+    ``train.stages.joint_learner`` ``ModuleDict``) crosses the same way: its
+    parameter names carry the two prefixes."""
     adam = flax_ppo.opt_state[0]
     params = dict(ppo.policy.named_parameters())
     moments = {}

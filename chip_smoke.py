@@ -126,11 +126,34 @@ Phases, each raising on failure:
      a device cache): stages 1 -> 2 -> 3 and evaluate (learned, random,
      center), each with its patch launches counted.
 
+ 11. AdaFocus+ (``models.gfv_plus``, ``train.stages_plus``) at the serving
+     point ``benchmark.plus_cfg((96, 8))`` (K=8 of T=16 frames focused,
+     bf16, full depth and width), this slice's main path: ``inference_plus``
+     at B=2 with the launch counts set to 0 just before (one patch launch,
+     no fused-block launch), logits (2, 16, 200) finite, bf16 against
+     float32 with float32's frame indices and actions injected (3e-2), the
+     patch kernel on the gathered frames bit for bit, the greedy top-K on
+     the card equal to the CPU's stable sort, ties included; at B=64
+     videos/s of three runs, each phase's ms (glance, select, gather,
+     policy, extraction, focus, scatter, classify), peak memory, and at
+     N=512 the frame gather beside the patch kernel on the gathered frames
+     (each beside its byte bound; the plain version, ``copy_`` and
+     ``index_select`` yardsticks); the ST stage-1 and the joint stage-2
+     step (``plus_rl``, reward 'random') at B=64, two warm-up and five
+     timed steps (videos/s, phase split, peak memory, exactly 1 and 2 patch
+     launches a step, every ratio_mean within 1e-3 of 1, frozen components
+     bit-identical, every trained tensor moved); one step of each in
+     float32 (TF32 off) against float64 at B=4 on injected draws (phases 6
+     and 7's limits; bf16 against float32 printed); the ST stage-3 and eval
+     steps at B=2; the CLI with ``model.frame_budget=8 model.plus_rl=true``
+     (B=32, 64 synthetic clips in a device cache): stages 1 -> 2 -> 3 and
+     evaluate, each with its patch launches counted.
+
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
-configuration's results, the bench, the CLI's results, phase 10's results
-and the kernel table (each kernel's launches on every path, its times at
+configuration's results, the bench, the CLI's results, phase 10's and
+phase 11's results and the kernel table (each kernel's launches on every path, its times at
 the flagship's and the matched configuration's shapes) as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -869,7 +892,8 @@ def _snapshot(model) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def check_train_update(before: dict, model, stage: int, label: str) -> None:
+def check_train_update(before: dict, model, stage: int, label: str, labels: dict = None,
+                       moving_stats: tuple = ()) -> None:
     """After train steps of ``stage``: every tensor (parameter or running
     statistic) of a frozen component bit-identical; every parameter of a
     trained component moved, except one that got a zero gradient and is
@@ -877,12 +901,15 @@ def check_train_update(before: dict, model, stage: int, label: str) -> None:
     decay leaves it at 0) or is trained by PPO's Adam, which has no weight
     decay (``policy.gru.weight_hh`` with one video division: the GRU's one
     step starts from a zero hidden); the running statistics of a trained
-    backbone moved."""
+    backbone moved. ``labels`` overrides the freeze matrix row of ``stage``
+    for some components; the running statistics of a frozen component in
+    ``moving_stats`` may move (a backbone in train mode whose parameters are
+    frozen, as AdaFocus+'s focuser in stage 3)."""
     import torch
 
     from adafocus_torch.train.optim import stage_trainable
 
-    labels = stage_trainable(stage)
+    labels = {**stage_trainable(stage), **(labels or {})}
     grads = {name: p.grad for name, p in model.named_parameters()}
     after = model.state_dict()
     still = []
@@ -892,7 +919,8 @@ def check_train_update(before: dict, model, stage: int, label: str) -> None:
         comp = key.split(".")[0]
         same = torch.equal(old, after[key])
         if labels.get(comp, "frozen") == "frozen":
-            if not same:
+            moving = comp in moving_stats and key.endswith(("running_mean", "running_var"))
+            if not same and not moving:
                 raise AssertionError(f"{label}: frozen {key} changed")
         elif same:
             g = grads.get(key)
@@ -2256,6 +2284,478 @@ def sthsth_train_phase(device, card: str) -> dict:
     return out
 
 
+# phase 11, AdaFocus+ at the serving point benchmark.plus_cfg((96, 8)): the
+# glancer scans all T=16 frames, the focuser K=8 of them. bf16 against
+# float32 and float32 against float64 inject the reference's frame indices
+# and patch actions, so that a top-K tie does not decide the comparison
+PLUS_POINT = (96, 8)
+PLUS_B = 64                  # benchmarks/run_benchmarks.py --batch
+PLUS_SMALL_B = 2
+PLUS_COMPARE_B = 4
+PLUS_PHASES = ("glance", "select", "gather", "policy", "extract", "focus", "scatter",
+               "classify")
+PLUS_FORWARDS = 10           # forwards of the phase split
+PLUS_CLI_VIDEOS, PLUS_CLI_B = 64, 32
+NO_FUSED = {"fused_inverted_residual": 0, "fused_bottleneck": 0}
+
+
+def _plus_cfg(**kw):
+    from adafocus_torch.benchmark import plus_cfg
+
+    return dataclasses.replace(plus_cfg(PLUS_POINT), **kw)
+
+
+def _topk_ties(scores, k: int) -> int:
+    """Rows whose K-th and (K+1)-th largest scores are equal."""
+    top = scores.float().sort(dim=-1, descending=True).values
+    return int((top[:, k - 1] == top[:, k]).sum())
+
+
+def plus_forward(device, card: str) -> dict:
+    """Phase 11, serving at B=PLUS_SMALL_B (``inference_plus``): with the
+    launch counts set to 0 just before, exactly one patch launch and no
+    fused-block launch; logits (B, T, 200) finite; bf16 against float32 on
+    the same weights with float32's frame indices and actions injected
+    (BF16_REL_TOL); the patch kernel on the gathered frames at the policy's
+    actions bit-identical to the plain version; the greedy top-K on the
+    card equal to the stable sort's on the CPU for the same scores and for
+    scores with many ties."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.models.gfv_plus import (
+        forward_plus, gather_frames, inference_plus, random_frame_selection, select_topk,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = _plus_cfg()
+    cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
+    b, t, s, g, k = PLUS_SMALL_B, cfg16.num_frames, cfg16.image_size, cfg16.glance_size, \
+        cfg16.frame_budget
+    model16 = GFV(cfg16, device=device, generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 30)
+    frames = torch.randn((b, t, s, s, 3), generator=gen).to(device)
+    small = torch.randn((b, t, g, g, 3), generator=gen).to(device)
+    frames16, small16 = frames.bfloat16(), small.bfloat16()
+    _launch_counts(reset=True)
+    logits = inference_plus(model16, frames16, small16, device=device)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != {"extract_patches": 1, **NO_FUSED}:
+        raise AssertionError(f"AdaFocus+ forward launches {launches}, want one patch launch")
+    if tuple(logits.shape) != (b, t, cfg16.num_classes) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"AdaFocus+ logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits.float()).all())}")
+    model32 = GFV(cfg32, device=device, generator=torch.Generator().manual_seed(SEED))
+    with torch.inference_mode():
+        _, aux32 = forward_plus(model32, frames, small, train=False, patch_mode="policy")
+        _, aux16 = forward_plus(model16, frames16, small16, train=False, patch_mode="policy")
+        scores = model16.frame_scores(model16.glance(small16)[1])
+    idx32, act32 = aux32["frame_idx"], aux32["actions"]
+    logits32 = inference_plus(model32, frames, small, device=device, frame_idx=idx32,
+                              actions=act32)
+    logits16 = inference_plus(model16, frames16, small16, device=device, frame_idx=idx32,
+                              actions=act32)
+    rel = _rel_err(logits16, logits32)[0]
+    agree = float((aux16["frame_idx"] == idx32).float().mean())
+    print(f"AdaFocus+ {PLUS_POINT} B={b}: launches {launches}; bf16 vs float32 on float32's "
+          f"frame indices and actions: max|d|/max|ref| = {rel!r} (limit {BF16_REL_TOL}); frame "
+          f"index agreement bf16/f32 {agree!r}", flush=True)
+    if not (torch.isfinite(logits32).all() and rel <= BF16_REL_TOL):
+        raise AssertionError(f"AdaFocus+ bf16 vs float32: {rel} > {BF16_REL_TOL}")
+    check_patch_at(gather_frames(frames16, aux16["frame_idx"]), aux16["actions"], s,
+                   cfg16.patch_size, f"AdaFocus+ B={b}, K={k} gathered frames, policy actions")
+    # the top-K on the card against the stable sort on the CPU, ties included
+    tied = torch.randint(0, 3, (PLUS_B, t), generator=gen).float()
+    for name, sc in (("the selector's bf16-valued scores", scores),
+                     ("scores of three levels", tied.to(device))):
+        got = select_topk(sc, k, "top")[0].cpu()
+        want = select_topk(sc.cpu(), k, "top")[0]
+        noise = random_frame_selection(*sc.shape, k, noise=sc).cpu()
+        if not (torch.equal(got, want) and torch.equal(noise, want)):
+            raise AssertionError(f"AdaFocus+ top-K on the card differs from the CPU's on {name}")
+        print(f"AdaFocus+ top-{k} of {t} on the card equals the CPU's stable sort on {name} "
+              f"({_topk_ties(sc, k)} of {sc.shape[0]} rows tied at the K-th score)", flush=True)
+    del model32
+    torch.cuda.empty_cache()
+    return {"model": model16, "launches": launches, "bf16_vs_float32": rel,
+            "frame_index_agreement": agree}
+
+
+def plus_throughput(model16, device, card: str) -> dict:
+    """Phase 11, serving at B=PLUS_B: videos/s of three runs of ten
+    forwards (``benchmark.inference_rates``), peak memory, each phase's mean
+    ms over PLUS_FORWARDS forwards by CUDA events; then, at N = B*K, the
+    frame gather (its byte bound: B*K frames read and written) beside the
+    patch kernel on the gathered frames (bit for bit against the plain
+    version; its byte bound, the plain version, a strided and a contiguous
+    ``copy_`` of the same bytes) and ``index_select`` of the same rows."""
+    import torch
+
+    from adafocus_torch.benchmark import inference_rates, make_data
+    from adafocus_torch.models.gfv_plus import forward_plus, gather_frames, inference_plus
+    from adafocus_torch.ops.patch import (
+        extract_patches_at, extract_patches_reference, patch_offsets,
+    )
+
+    cfg = model16.cfg
+    b, t, s, p, k = PLUS_B, cfg.num_frames, cfg.image_size, cfg.patch_size, cfg.frame_budget
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    vps = inference_rates(model16, b, inner_iters=10, repeats=3)
+    peak = torch.cuda.max_memory_allocated(device)
+    data = make_data(cfg, b, device=device)
+    frames, small = data["frames"], data["frames_small"]
+    runs = []
+    for i in range(2 + PLUS_FORWARDS):
+        marks = [("start", torch.cuda.Event(enable_timing=True))]
+        marks[0][1].record()
+
+        def mark(phase, marks=marks):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((phase, ev))
+
+        inference_plus(model16, frames, small, device=device, mark=mark)
+        if i >= 2:
+            runs.append(marks)
+    torch.cuda.synchronize()
+    phase_ms = {}
+    for m in runs:
+        for (_, a), (name, ev) in zip(m, m[1:]):
+            phase_ms[name] = phase_ms.get(name, 0.0) + a.elapsed_time(ev) / len(runs)
+    if tuple(phase_ms) != PLUS_PHASES:
+        raise AssertionError(f"AdaFocus+ phases {tuple(phase_ms)}")
+    with torch.inference_mode():
+        _, aux = forward_plus(model16, frames, small, train=False, patch_mode="policy")
+    idx, actions = aux["frame_idx"], aux["actions"]
+    n = b * k
+    gathered = gather_frames(frames, idx)
+    check_patch_at(gathered, actions, s, p, f"AdaFocus+ B={b} K={k} (N={n}) gathered frames")
+    flat = gathered.reshape(n, s, s, 3)
+    offs = patch_offsets(actions.reshape(-1, 2), s, p)
+    rows = (torch.arange(b, device=device)[:, None] * t + idx).reshape(-1)
+    frames_bt = frames.reshape(b * t, s, s, 3)
+    out = torch.empty((n, p, p, 3), dtype=frames.dtype, device=device)
+    o = min(64, s - p)
+    window = flat[:, o:o + p, o:o + p, :]
+    dense = torch.empty_like(out).copy_(window)
+    elem = frames.element_size()
+    patch_bytes = 2 * n * p * p * 3 * elem + n * 2 * 4
+    gather_bytes = 2 * n * s * s * 3 * elem
+    times = {"gather_ms": _time_ms(lambda: gather_frames(frames, idx)),
+             "index_select_ms": _time_ms(lambda: torch.index_select(frames_bt, 0, rows)),
+             "patch_ms": _time_ms(lambda: extract_patches_at(gathered, actions, s, p)),
+             "patch_plain_ms": _time_ms(lambda: extract_patches_reference(flat, offs, p),
+                                        iters=20),
+             "strided_copy_ms": _time_ms(lambda: out.copy_(window)),
+             "contiguous_copy_ms": _time_ms(lambda: out.copy_(dense)),
+             "patch_bound_ms": patch_bytes / HBM_BYTES_PER_S * 1e3,
+             "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3}
+    res = {"videos_per_s": vps, "phase_ms": phase_ms, "peak_bytes": peak, "n": n,
+           "gather_and_patch": times}
+    print(f"AdaFocus+ {PLUS_POINT} bf16 B={b}: videos/s {vps!r}; phase ms "
+          f"{json.dumps(phase_ms)}; peak memory {peak} B ({peak / 2**30:.2f} GiB); at N={n}: "
+          f"{json.dumps(times)} ({card})", flush=True)
+    del data, frames, small, gathered, flat, out, window, dense, frames_bt
+    torch.cuda.empty_cache()
+    return res
+
+
+def plus_train_timed(device, card: str) -> dict:
+    """Phase 11: the ST stage-1 step and the joint stage-2 step (``plus_rl``,
+    reward 'random') at B=PLUS_B, TRAIN_WARMUP + TRAIN_TIMED steps each with
+    the launch counts set to 0 just before: videos/s, each phase's ms by
+    CUDA events, peak memory; exactly one and two patch launches a step;
+    finite metrics, every stage-2 ratio_mean within RATIO_TOL of 1; frozen
+    components bit-identical, every trained tensor moved (the selector in
+    stage 1; the policy and selector_ac in stage 2)."""
+    import torch
+
+    from adafocus_torch.train.stages import create_train_state
+    from adafocus_torch.train.stages_plus import make_plus_stage2_joint_step, make_plus_train_step
+
+    batch = _train_batch(_plus_cfg(), PLUS_B, device, SEED + 31, torch.bfloat16)
+    n_steps = TRAIN_WARMUP + TRAIN_TIMED
+    out = {}
+    for stage, rl in ((1, False), (2, True)):
+        cfg = _plus_cfg(plus_rl=rl)
+        state = create_train_state(cfg, stage, device=device,
+                                   generator=torch.Generator().manual_seed(SEED))
+        model = state.model
+        step = make_plus_stage2_joint_step(model, state.ppo) if stage == 2 else \
+            make_plus_train_step(model, 1, state.optimizer, state.scheduler)
+        gen = torch.Generator(device=device).manual_seed(SEED + 32 + stage)
+        before = _snapshot(model)
+        run = _timed_steps(step, batch, gen, device)
+        if run["launches"] != {"extract_patches": stage * n_steps, **NO_FUSED}:
+            raise AssertionError(f"AdaFocus+ stage {stage}: launches {run['launches']} in "
+                                 f"{n_steps} steps, want {stage} patch launches a step")
+        metrics = run["metrics"]
+        if not all(math.isfinite(v) for m in metrics for v in m.values()):
+            raise AssertionError(f"AdaFocus+ stage {stage} metrics {metrics}")
+        if stage == 2 and not all(abs(m["ppo/ratio_mean"] - 1.0) <= RATIO_TOL for m in metrics):
+            raise AssertionError(f"AdaFocus+ stage 2 ratio_mean "
+                                 f"{[m['ppo/ratio_mean'] for m in metrics]}")
+        check_train_update(before, model, stage, f"AdaFocus+ stage {stage} B={PLUS_B}",
+                           labels={"selector_ac": "ppo"} if stage == 2 else None)
+        vps, step_ms, peak = run["videos_per_s"], run["step_ms"], run["peak_bytes"]
+        key = "ppo/loss" if stage == 2 else "loss"
+        print(f"train AdaFocus+ {'joint ' if stage == 2 else 'ST '}stage {stage} bf16 B={PLUS_B} "
+              f"K={cfg.frame_budget} of T={cfg.num_frames}: videos/s {vps!r} (mean "
+              f"{PLUS_B * len(step_ms) / (sum(step_ms) / 1e3)!r}); step ms {step_ms!r}; phase ms "
+              f"{json.dumps(run['phase_ms'])}; peak memory {peak} B ({peak / 2**30:.2f} GiB); "
+              f"patch launches {run['launches']['extract_patches']} in {n_steps} steps; {key} "
+              f"{[m[key] for m in metrics]}"
+              + (f"; ratio_mean {[m['ppo/ratio_mean'] for m in metrics]!r}" if stage == 2
+                 else "") + f" ({card})", flush=True)
+        out[stage] = {k: run[k] for k in ("videos_per_s", "step_ms", "phase_ms", "peak_bytes",
+                                          "launches", "metrics")}
+        del state, model, step, before, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def plus_precisions(device) -> dict:
+    """Phase 11: one ST stage-1 step and one joint stage-2 step at
+    B=PLUS_COMPARE_B in bf16 compute, float32 (TF32 off) and float64, from
+    the same float32 initial weights, on the same batch and injected draws
+    (stage 1: the frame indices and patch actions; stage 2: the selector's
+    picks, the policy's anchors, the baseline's frames and patch actions):
+    float32 against float64 at phase 6's limits (stage 1: the loss, each
+    trained component's gradient cosine) and phase 7's (stage 2: the PPO
+    loss, the rewards, the learner's gradient cosine); bf16 against float32
+    printed."""
+    import torch
+
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.ppo.core import PPOConfig, ppo_init, ppo_update
+    from adafocus_torch.train.optim import OptimConfig, freeze_for_stage, make_stage_optimizer
+    from adafocus_torch.train.stages import joint_learner
+    from adafocus_torch.train.stages_plus import (
+        joint_loss, make_plus_train_step, plus_stage2_episode,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = _plus_cfg()
+    b, t, k = PLUS_COMPARE_B, cfg16.num_frames, cfg16.frame_budget
+    batch = _train_batch(cfg16, b, device, SEED + 35, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(SEED + 36)
+    picks = torch.rand((b, t), generator=gen, device=device).argsort(dim=1)[:, :k]
+    actions = random_patch_actions((b, k), gen, device)
+    draws = {"select": picks, "spatial": torch.randint(0, cfg16.action_dim, (k, b),
+                                                       generator=gen, device=device),
+             "base_idx": torch.randint(0, t, (b, k), generator=gen, device=device),
+             "base_actions": random_patch_actions((b, k), gen, device)}
+    st, joint = {}, {}
+    for dtype in (torch.bfloat16, torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        pdtype = torch.promote_types(dtype, torch.float32)
+        model = GFV(dataclasses.replace(cfg16, dtype=dtype), device=device,
+                    generator=torch.Generator().manual_seed(SEED), param_dtype=pdtype)
+        step = make_plus_train_step(model, 1, *make_stage_optimizer(model, 1, OptimConfig()))
+        loss = float(step(batch, None, frame_idx=picks.sort(dim=1).values,
+                          actions=actions)["loss"])
+        st[name] = (loss, {comp: torch.cat([p.grad.flatten().double()
+                                            for p in getattr(model, comp).parameters()])
+                           for comp in ("focuser", "classifier", "selector")})
+        del model, step
+        model = GFV(dataclasses.replace(cfg16, dtype=dtype, plus_rl=True), device=device,
+                    generator=torch.Generator().manual_seed(SEED), param_dtype=pdtype)
+        freeze_for_stage(model, 2)
+        ppo = ppo_init(joint_learner(model), PPOConfig())
+        episode = plus_stage2_episode(model, batch, None, ppo.cfg, draws)
+        metrics = ppo_update(ppo, episode, model.autocast, joint_loss)
+        joint[name] = (float(metrics["ppo/loss"]), episode["rewards"].double().flatten(),
+                       torch.cat([p.grad.flatten().double() for p in ppo.policy.parameters()]),
+                       float(metrics["ppo/ratio_mean"]))
+        del model, ppo, episode
+        torch.cuda.empty_cache()
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+    out = {}
+    for name, ref in (("float32", "float64"), ("bfloat16", "float32")):
+        (loss, g), (loss_ref, g_ref) = st[name], st[ref]
+        (jl, r, jg, ratio), (jl_ref, r_ref, jg_ref, _) = joint[name], joint[ref]
+        out[f"{name}_vs_{ref}"] = cmp = {
+            "stage1_loss_rel": abs(loss - loss_ref) / abs(loss_ref),
+            "stage1_grad_cos": {c: cos(g[c], g_ref[c]) for c in g},
+            "stage2_loss_rel": abs(jl - jl_ref) / abs(jl_ref),
+            "stage2_reward_rel": float((r - r_ref).abs().max() / r_ref.abs().max()),
+            "stage2_grad_cos": cos(jg, jg_ref), "stage2_ratio_mean": ratio}
+        print(f"AdaFocus+ B={b}, {name} vs {ref} (TF32 off), one ST stage-1 and one joint "
+              f"stage-2 step on the same weights, batch and draws: {json.dumps(cmp)}",
+              flush=True)
+        if not all(math.isfinite(v) for v in (loss, jl)):
+            raise AssertionError(f"AdaFocus+ {name}: losses {loss}, {jl}")
+    f32 = out["float32_vs_float64"]
+    checks = [("stage 1 loss", f32["stage1_loss_rel"] <= F32_LOSS_REL_TOL),
+              ("stage 2 ppo loss", f32["stage2_loss_rel"] <= PPO_F32_LOSS_REL_TOL),
+              ("stage 2 rewards", f32["stage2_reward_rel"] <= PPO_F32_REWARD_REL_TOL),
+              ("stage 2 gradient cosine", f32["stage2_grad_cos"] >= PPO_F32_GRAD_MIN_COS)]
+    checks += [(f"stage 1 {c} cosine", v >= F32_GRAD_MIN_COS)
+               for c, v in f32["stage1_grad_cos"].items()]
+    failed = [name for name, ok in checks if not ok]
+    print(f"AdaFocus+ precision limits, float32 vs float64 (phases 6 and 7): failed: {failed}",
+          flush=True)
+    if failed:
+        raise AssertionError(f"AdaFocus+ precision checks failed: {failed}")
+    return out
+
+
+def plus_small_stages(device) -> dict:
+    """Phase 11: the ST stage-3 step (two steps) and then the eval step at
+    B=PLUS_SMALL_B, each with the launch counts set to 0 just before: one
+    patch launch a step and eval, finite loss, frozen components
+    bit-identical (the focuser's running statistics move: it runs in train
+    mode, as in the JAX package), the classifier and selector moved; the
+    eval step leaves the model as it was and returns finite logits."""
+    import torch
+
+    from adafocus_torch.train.stages import create_train_state
+    from adafocus_torch.train.stages_plus import make_plus_eval_step, make_plus_train_step
+
+    cfg = _plus_cfg()
+    batch = _train_batch(cfg, PLUS_SMALL_B, device, SEED + 37, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 38)
+    state = create_train_state(cfg, 3, device=device, generator=torch.Generator().manual_seed(SEED))
+    model = state.model
+    step = make_plus_train_step(model, 3, state.optimizer, state.scheduler)
+    before = _snapshot(model)
+    _launch_counts(reset=True)
+    losses = [float(step(batch, gen)["loss"]) for _ in range(2)]
+    launches = {"stage 3": _launch_counts()}
+    if launches["stage 3"] != {"extract_patches": 2, **NO_FUSED} or \
+            not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"AdaFocus+ stage 3: launches {launches['stage 3']}, losses {losses}")
+    check_train_update(before, model, 3, f"AdaFocus+ stage 3 B={PLUS_SMALL_B}",
+                       moving_stats=("focuser",))
+    before = _snapshot(model)
+    _launch_counts(reset=True)
+    logits, metrics = make_plus_eval_step(model)(batch)
+    torch.cuda.synchronize()
+    launches["eval"] = _launch_counts()
+    after = model.state_dict()
+    if launches["eval"] != {"extract_patches": 1, **NO_FUSED} or \
+            tuple(logits.shape) != (PLUS_SMALL_B, cfg.num_frames, cfg.num_classes) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"AdaFocus+ eval: launches {launches['eval']}, logits "
+                             f"{tuple(logits.shape)}")
+    if any(not torch.equal(v, after[k]) for k, v in before.items()):
+        raise AssertionError("the AdaFocus+ eval step changed the model")
+    print(f"AdaFocus+ stage 3 bf16 B={PLUS_SMALL_B}: losses {losses}, launches "
+          f"{launches['stage 3']}; eval step: logits {tuple(logits.shape)} finite, top1 "
+          f"{float(metrics['top1'])}, launches {launches['eval']}", flush=True)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _plus_cli_args(*extra) -> list:
+    return ["--config", os.path.join(ROOT, "configs", "actnet_default.yaml"),
+            "run.synthetic_data=true", f"run.synthetic_videos={PLUS_CLI_VIDEOS}",
+            "loader.cache=device", f"loader.batch_size={PLUS_CLI_B}",
+            f"model.frame_budget={PLUS_POINT[1]}", "model.plus_rl=true", *extra]
+
+
+def plus_cli_phase(device, card: str) -> dict:
+    """Phase 11: the CLI with ``model.frame_budget=8 model.plus_rl=true``
+    (configs/actnet_default.yaml, bf16, B=PLUS_CLI_B, PLUS_CLI_VIDEOS
+    synthetic clips in the device cache): stages 1 -> 2 -> 3, one epoch
+    each, each warm-started from the one before, then evaluate, each with
+    the launch counts set to 0 just before: one patch launch a stage-1/3
+    step and eval batch, two a joint stage-2 step, no fused-block launch;
+    the selector actor-critic crosses from stage 2 to stage 3 bit for bit;
+    no frame byte from the host after the fill; finite results."""
+    import tempfile
+
+    import torch
+
+    from adafocus_torch.cli import evaluate as cli_evaluate
+    from adafocus_torch.cli import train as cli_train
+    from adafocus_torch.train import checkpoint as ckpt
+
+    out = {"stages": {}}
+    n_val = -(-PLUS_CLI_VIDEOS // PLUS_CLI_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "cli.log")
+        prev = None
+        for stage in (1, 2, 3):
+            args = _plus_cli_args(f"run.stage={stage}", "run.epochs=1",
+                                  f"run.ckpt_dir={tmp}/p{stage}",
+                                  *([f"run.warm_start={prev}"] if prev else []))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            _launch_counts(reset=True)
+            res = _run_cli(cli_train.main, args, log)
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            steps = sum(e["steps"] for e in res["epochs"])
+            want = (2 if stage == 2 else 1) * steps + n_val
+            if launches != {"extract_patches": want, **NO_FUSED}:
+                raise AssertionError(f"AdaFocus+ CLI stage {stage}: launches {launches}, want "
+                                     f"{want} ({steps} steps, {n_val} eval batches)")
+            if res["host_frame_bytes"] or not math.isfinite(res["best_acc"]):
+                raise AssertionError(f"AdaFocus+ CLI stage {stage}: {res['host_frame_bytes']} B "
+                                     f"from the host, best_acc {res['best_acc']}")
+            if stage == 3:
+                tree = ckpt.load_checkpoint(prev, best=True) or ckpt.load_checkpoint(prev)
+                _same_as_checkpoint(res["state"].model, tree, ("selector_ac", "glancer"),
+                                    "AdaFocus+ CLI stage 3")
+            peak = torch.cuda.max_memory_allocated(device)
+            out["stages"][stage] = {"epochs": res["epochs"], "launches": launches,
+                                    "best_acc": res["best_acc"], "peak_bytes": peak}
+            print(f"CLI AdaFocus+ (plus_rl, K={PLUS_POINT[1]}) train stage {stage} bf16 "
+                  f"B={PLUS_CLI_B}, {PLUS_CLI_VIDEOS} synthetic videos from the device cache: "
+                  f"videos/s {[e['videos_per_s'] for e in res['epochs']]!r} (loader, batch prep "
+                  f"and step, a cold epoch); patch launches {launches['extract_patches']} "
+                  f"({steps} steps, {n_val} eval batches); peak memory {peak} B "
+                  f"({peak / 2**30:.2f} GiB); best acc {res['best_acc']!r} ({card})", flush=True)
+            del res
+            torch.cuda.empty_cache()
+            prev = f"{tmp}/p{stage}"
+        _launch_counts(reset=True)
+        res = _run_cli(cli_evaluate.main, _plus_cli_args(f"run.resume={prev}",
+                                                         f"run.ckpt_dir={tmp}/pev"), log)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        if launches != {"extract_patches": n_val, **NO_FUSED} or \
+                not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"AdaFocus+ CLI evaluate: {res}, launches {launches}")
+        out["evaluate"] = {"results": res, "launches": launches}
+        print(f"CLI AdaFocus+ evaluate bf16 B={PLUS_CLI_B} of stage 3: {json.dumps(res)} "
+              f"({launches['extract_patches']} patch launches) ({card})", flush=True)
+    return out
+
+
+def plus_phase(device, card: str) -> dict:
+    """Phase 11 as a whole. The CLI runs with cuDNN's autotuner off, the
+    CLI's setting."""
+    import torch
+
+    fwd = plus_forward(device, card)
+    model16 = fwd.pop("model")
+    out = {"forward": fwd, "serving": plus_throughput(model16, device, card)}
+    del model16
+    torch.cuda.empty_cache()
+    out["train"] = plus_train_timed(device, card)
+    out["precision"] = plus_precisions(device)
+    out["small"] = plus_small_stages(device)
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        out["cli"] = plus_cli_phase(device, card)
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2370,14 +2870,26 @@ def main() -> int:
     done("phase 9")
     sthsth = sthsth_train_phase(device, card)
     done("phase 10")
-    # each kernel's count from the run of this slice's main path, the sth-sth
-    # CLI's stage 1 (the patch kernel; the CLI runs the cuDNN path), and for
-    # the blocks the matched sth-sth forward's fused path; the counts of the
-    # other paths beside them
+    plus = plus_phase(device, card)
+    done("phase 11")
+    # each kernel's count from the run of this slice's main path, the
+    # AdaFocus+ CLI's stage 1 (the patch kernel; the plus path has no fused
+    # dispatch), and for the blocks the matched sth-sth forward's fused path;
+    # the counts of the other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
     sth_cli = sthsth["cli"]
     n_sth_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
-    paths = {**{f"CLI sth-sth train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
+    n_plus_val = -(-PLUS_CLI_VIDEOS // PLUS_CLI_B)
+    paths = {**{f"CLI AdaFocus+ train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
+                f"and {n_plus_val} eval batches": v["launches"]
+                for st, v in plus["cli"]["stages"].items()},
+             f"CLI AdaFocus+ evaluate, {n_plus_val} batches": plus["cli"]["evaluate"]["launches"],
+             "AdaFocus+ inference, 1 forward": plus["forward"]["launches"],
+             f"train AdaFocus+ ST stage 1, {n_steps} steps": plus["train"][1]["launches"],
+             f"train AdaFocus+ joint stage 2, {n_steps} steps": plus["train"][2]["launches"],
+             "train AdaFocus+ ST stage 3, 2 steps": plus["small"]["stage 3"],
+             "AdaFocus+ eval, 1 step": plus["small"]["eval"],
+             **{f"CLI sth-sth train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
                 f"and {n_sth_val} eval batches": v["launches"]
                 for st, v in sth_cli["stages"].items()},
              **{f"CLI sth-sth evaluate {p}, {n_sth_val} batches": v["launches"]
@@ -2398,7 +2910,14 @@ def main() -> int:
                 for k, v in train_launches.items()},
              f"train stage 2, {n_steps} steps": stage2["launches"]}
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
-    rows[0]["launches"] = sth_cli["stages"][1]["launches"]["extract_patches"]
+    rows[0]["launches"] = plus["cli"]["stages"][1]["launches"]["extract_patches"]
+    gp = plus["serving"]["gather_and_patch"]
+    rows[0]["plus"] = {
+        "ms": gp["patch_ms"], "plain_ms": gp["patch_plain_ms"], "bound_ms": gp["patch_bound_ms"],
+        "bound_by": "bytes", "library_ms": gp["strided_copy_ms"],
+        "gather_ms": gp["gather_ms"], "gather_bound_ms": gp["gather_bound_ms"],
+        "shape": f"AdaFocus+ B={PLUS_B} K={PLUS_POINT[1]}: N={plus['serving']['n']} gathered "
+                 f"224x224x3 frames P={PLUS_POINT[0]} bf16"}
     rows[0]["matched"] = {
         "ms": patch_matched["us"] / 1e3, "plain_ms": patch_matched["plain_us"] / 1e3,
         "bound_ms": patch_matched["bound_us"] / 1e3, "bound_by": "bytes",
@@ -2421,6 +2940,7 @@ def main() -> int:
     print(json.dumps({"port_bench": bench}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"sthsth_train": sthsth}), flush=True)
+    print(json.dumps({"plus": plus}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

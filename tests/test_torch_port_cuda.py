@@ -19,6 +19,12 @@ the patch kernel twice, leaves everything but the policy bit-identical and
 moves every policy parameter. The policy's sampler draws each class from a
 CUDA generator at its softmax frequency, within 5 sigma.
 
+AdaFocus+ on the card: its top-K picks the CPU's frames among tied scores;
+the patch kernel on frames gathered at K of T indices equals the plain
+version bit for bit; its stage-1 and joint stage-2 steps at the tiny
+configuration launch the patch kernel once and twice and leave the frozen
+components bit-identical.
+
 The data layer: the device cache's batches are CUDA tensors equal to the
 host cache's; prefetching takes an unindexed CUDA device; the batch prep on the card (augmentation, views, glance
 downsample) matches the CPU's on the same uint8 batch and draws within
@@ -219,6 +225,107 @@ def test_cuda_stage2_step_trains_only_the_policy():
     for key, value in before.items():
         moved = not torch.equal(value, after[key])
         assert moved == key.startswith("policy."), key
+
+
+_TIED_SCORES = {
+    "issue_row": ([[1.0, 3.0, 3.0, 2.0, 3.0, 0.0]], 2),
+    "bf16_rounded": ([[0.1234, 0.5, 0.1235, 0.1236, -1.0, 0.5, 0.1234, 0.0]], 4),
+    "few_levels": (torch.randint(0, 3, (64, 16), generator=torch.Generator().manual_seed(0))
+                   .float().tolist(), 8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_TIED_SCORES))
+def test_cuda_plus_top_k_ties_match_cpu(case):
+    """AdaFocus+'s top-K on the card picks the CPU's frames among tied
+    scores (ties toward the lower index, as ``jax.lax.top_k``), in bf16 and
+    float32, and the straight-through mask is the hard mask exactly."""
+    _needs_gpu()
+    from adafocus_torch.models import gfv_plus as tplus
+
+    rows, k = _TIED_SCORES[case]
+    for dtype in (torch.float32, torch.bfloat16):
+        scores = torch.tensor(rows).to(dtype).float()
+        want, _ = tplus.select_topk(scores, k, "top")
+        got, mask = tplus.select_topk(scores.cuda(), k, "top")
+        assert torch.equal(got.cpu(), want), dtype
+        assert torch.equal(mask, torch.zeros_like(mask).scatter(1, got, 1.0))
+        noise = tplus.random_frame_selection(*scores.shape, k, noise=scores.cuda())
+        assert torch.equal(noise.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_patch_kernel_on_gathered_frames():
+    """The patch kernel on frames gathered at AdaFocus+'s K of T indices
+    (one launch) equals the plain version on the CPU bit for bit, and the
+    patches of the ungathered frames at the same frames and actions."""
+    _needs_gpu()
+    from adafocus_torch.models import gfv_plus as tplus
+
+    gen = torch.Generator().manual_seed(3)
+    b, t, k, s, p = 3, 16, 8, 224, 96
+    frames = torch.randn((b, t, s, s, 3), generator=gen).bfloat16()
+    idx = tplus.random_frame_selection(b, t, k, gen)
+    actions = torch.rand((b, k, 2), generator=gen)
+    gathered = tplus.gather_frames(frames.cuda(), idx.cuda())
+    assert gathered.is_contiguous() and gathered.shape == (b, k, s, s, 3)
+    launches = tpatch.extract_patches.launches
+    got = tpatch.extract_patches_at(gathered, actions.cuda(), s, p)
+    torch.cuda.synchronize()
+    assert tpatch.extract_patches.launches == launches + 1
+    offs = tpatch.patch_offsets(actions.reshape(-1, 2), s, p)
+    sel = tplus.gather_frames(frames, idx).reshape(b * k, s, s, 3)
+    assert torch.equal(got.cpu(), tpatch.extract_patches_reference(sel, offs, p))
+    rows = (torch.arange(b)[:, None] * t + idx).reshape(-1)
+    assert torch.equal(got.cpu(), tpatch.extract_patches_reference(
+        frames.reshape(b * t, s, s, 3)[rows], offs, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rl", [False, True], ids=["st", "rl"])
+def test_cuda_plus_steps_launch_and_freeze(rl):
+    """AdaFocus+ at a tiny configuration on the card: the stage-1 step and,
+    with ``plus_rl``, the joint stage-2 step launch the patch kernel once
+    and twice; stage 1 leaves the glancer, the policy and the selector
+    actor-critic bit-identical, the joint stage 2 everything but the policy
+    and the selector actor-critic, and each trained component moves."""
+    _needs_gpu()
+    import dataclasses
+
+    from adafocus_torch.train import stages_plus as tsplus
+
+    cfg = dataclasses.replace(tgfv.flagship(tiny=True), num_frames=6, frame_budget=3,
+                              selector_hidden=8, plus_rl=rl)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, t, s, g = 2, cfg.num_frames, cfg.image_size, cfg.glance_size
+    batch = {"frames": torch.randn((b, t, s, s, 3), generator=gen, device="cuda"),
+             "frames_small": torch.randn((b, t, g, g, 3), generator=gen, device="cuda"),
+             "labels": torch.tensor([1, 4], device="cuda")}
+    for stage in ((1, 2) if rl else (1,)):
+        state = tstages.create_train_state(cfg, stage, device="cuda",
+                                           generator=torch.Generator().manual_seed(0))
+        model = state.model
+        step = tsplus.make_plus_stage2_joint_step(model, state.ppo) if stage == 2 else \
+            tsplus.make_plus_train_step(model, 1, state.optimizer, state.scheduler)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        launches = tpatch.extract_patches.launches
+        metrics = step(batch, gen)
+        torch.cuda.synchronize()
+        assert tpatch.extract_patches.launches == launches + stage
+        assert all(torch.isfinite(v) for v in metrics.values())
+        after = model.state_dict()
+        frozen = ("glancer.", "focuser.", "classifier.") if stage == 2 else \
+            ("glancer.", "policy.", "selector_ac.")
+        for key, value in before.items():
+            if key.startswith(frozen):
+                assert torch.equal(value, after[key]), key
+        trained = ("policy.", "selector_ac.") if stage == 2 else ("focuser.", "classifier.")
+        for prefix in trained:
+            assert any(not torch.equal(v, after[k]) for k, v in before.items()
+                       if k.startswith(prefix)), prefix
+        if stage == 2:
+            assert abs(float(metrics["ppo/ratio_mean"]) - 1.0) <= 1e-6
 
 
 def _synthetic_loader(cache: str, device=None):

@@ -108,7 +108,8 @@ def test_port_imports_no_jax():
     for sub in ("adafocus_torch/data/transforms.py", "adafocus_torch/data/cache.py",
                 "adafocus_torch/cli/train.py", "adafocus_torch/cli/evaluate.py",
                 "adafocus_torch/config.py", "adafocus_torch/train/checkpoint.py",
-                "adafocus_torch/utils/visualize.py", "adafocus_torch/train/stages_sthsth.py"):
+                "adafocus_torch/utils/visualize.py", "adafocus_torch/train/stages_sthsth.py",
+                "adafocus_torch/models/gfv_plus.py", "adafocus_torch/train/stages_plus.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

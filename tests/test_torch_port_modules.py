@@ -154,20 +154,26 @@ def test_recurrent_classifier(models):
     ("policy_bn", True), ("policy_conv", False),
 ])
 def test_config_refuses_unported_families(field, value):
-    if field in ("frame_budget", "policy_conv"):
-        with pytest.raises(NotImplementedError, match=field):
-            tgfv.GFVConfig(**{field: value})
-        return
-    # the sth-sth parts serve (tests/test_torch_port_sthsth.py) and train
-    # (tests/test_torch_port_sthsth_train.py): the ActivityNet steps take
-    # them, but for the consensus head, which trains through
-    # train.stages_sthsth
+    """Every family of the JAX package's configuration is ported: the
+    ActivityNet steps take each field, but the consensus head, which trains
+    through train.stages_sthsth; a frame budget (AdaFocus+) also trains
+    through train.stages_plus, and the MLP state encoder (``policy_conv``)
+    and the sth-sth parts serve and train (tests/test_torch_port_plus*.py,
+    tests/test_torch_port_sthsth*.py)."""
     from adafocus_torch.train import stages as tstages
+    from adafocus_torch.train import stages_plus as tsplus
 
-    cfg = dataclasses.replace(tgfv.flagship(tiny=True), **{field: value})
+    cfg = dataclasses.replace(tgfv.flagship(tiny=True), num_frames=4, **{field: value})
     state = tstages.create_train_state(cfg, 1, device="cpu")
     if field == "classifier":
         with pytest.raises(ValueError, match="stages_sthsth"):
             tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+        return
+    tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+    if field == "frame_budget":
+        tsplus.make_plus_train_step(state.model, 1, state.optimizer, state.scheduler)
+    elif field == "policy_conv":
+        assert state.model.policy.encoder.proj is None
     else:
-        tstages.make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
+        with pytest.raises(ValueError, match="frame-budget"):
+            tsplus.make_plus_train_step(state.model, 1, state.optimizer, state.scheduler)

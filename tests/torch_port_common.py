@@ -60,6 +60,45 @@ def jax_variables(cfg: GFVConfig, seed: int = 0):
         {"params": state.params, "batch_stats": state.batch_stats}, seed)
 
 
+def abstract_variables(cfg: GFVConfig, seed: int = 0):
+    """(flax GFV, {'params', 'batch_stats'} as numpy trees) with the
+    structure of ``create_train_state``'s, from ``jax.eval_shape`` (nothing
+    compiled: a jitted init of the full-depth backbones costs tens of
+    seconds on the CPU) and values from a seeded generator: kernels normal
+    of variance 1 / fan-in, GRU weights and biases uniform in +-1/sqrt(H),
+    other biases uniform in +-0.1; BatchNorm scale, bias and statistics as
+    ``randomize_bn`` draws them, every BatchNorm's."""
+    model = GFV(cfg)
+    key = jax.random.key(seed)
+    shapes = jax.eval_shape(
+        model.init, {"params": key},
+        jnp.zeros((1, cfg.num_frames, cfg.glance_size, cfg.glance_size, 3), cfg.dtype),
+        jnp.zeros((cfg.t_focuser, cfg.patch_size, cfg.patch_size, 3), cfg.dtype), key)
+    rs = np.random.RandomState(seed)
+    dtype = np.dtype(cfg.dtype)
+    ranges = {"scale": (0.5, 1.5), "mean": (-0.5, 0.5), "var": (0.5, 1.5)}
+
+    def fill(path, s):
+        name, shape = path[-1], s.shape
+        if name == "kernel":
+            v = rs.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name in ("wi", "wh", "bi", "bh"):
+            k = 1.0 / np.sqrt(shape[-1] // 3)
+            v = rs.uniform(-k, k, shape)
+        elif name in ranges:
+            v = rs.uniform(*ranges[name], shape)
+        elif name == "bias":
+            bn = len(path) >= 2 and path[-2].startswith("bn")
+            v = rs.uniform(-0.5, 0.5, shape) if bn else rs.uniform(-0.1, 0.1, shape)
+        else:
+            raise KeyError(f"no filler for {'/'.join(path)}")
+        return v.astype(dtype)
+
+    shapes = unfreeze(shapes)
+    return model, {"params": _map_tree(fill, shapes["params"]),
+                   "batch_stats": _map_tree(fill, shapes.get("batch_stats", {}))}
+
+
 def randomize_bn(variables, seed: int):
     """Flax {'params', 'batch_stats'} -> numpy trees in which every
     BatchNorm scale, bias, mean and var is drawn uniformly from a seeded
