@@ -106,19 +106,49 @@ def _elapsed_s(run: Callable[[], None], device: torch.device) -> float:
     return start.elapsed_time(end) / 1e3
 
 
+def inference_fn_q8(model: GFV, seed: int = 0, heads: bool = False
+                    ) -> Callable[..., torch.Tensor]:
+    """The family's int8 serving forward (``quant_inference.family_q8``):
+    activation scales calibrated on seeded random deployment-shaped data
+    (two videos' glance frames and 2 * Tf patches, standard normal; the
+    scales' values do not change the work, the accuracy is held by the
+    tests on calibrated activations), then the weights prepared once
+    (``prepare_q8``), as a server prepares them. ``heads``: quantize the
+    policy and the classifier too. ``fn(frames, frames_small) -> logits``."""
+    from adafocus_torch.models.quant_inference import calibrate_gfv, family_q8, prepare_q8
+
+    cfg = model.cfg
+    device = model.device
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    g, p = cfg.glance_size, cfg.patch_size
+    calib = {"frames_small": torch.randn((2, cfg.num_frames, g, g, 3), generator=gen,
+                                         device=device),
+             "patches": torch.randn((2 * cfg.t_focuser, p, p, 3), generator=gen, device=device)}
+    scales = calibrate_gfv(model, [calib], heads=heads)
+    qw = prepare_q8(model, scales)
+    forward = family_q8(cfg)
+    return lambda frames, frames_small: forward(model, scales, frames, frames_small,
+                                                device=device, qw=qw)
+
+
 def inference_rates(model: GFV, batch: int = 64, inner_iters: int = 10, repeats: int = 3,
                     seed: int = 0, mode: str = "bf16", views: int = 1, fused: str = "auto"
                     ) -> List[float]:
     """Videos/s of each of ``repeats`` timed runs of ``inner_iters``
     deployment forwards at ``batch`` videos (see ``time_inference``)."""
-    if mode in ("int8", "int8+heads"):
-        raise NotImplementedError(
-            f"mode={mode!r}: int8 serving is not ported yet (ROADMAP.md item 14)")
-    if mode != "bf16":
+    if mode not in ("bf16", "int8", "int8+heads"):
         raise ValueError(f"unknown mode {mode!r}: 'bf16', 'int8' or 'int8+heads'")
     device = model.device
     data = make_data(model.cfg, batch * views, device=device, seed=seed)
-    fn = inference_fn(model, fused)
+    if mode == "bf16":
+        fn = inference_fn(model, fused)
+    else:
+        # the serving transport format: frames move as int8, quantized where
+        # they are made, before the timed region
+        from adafocus_torch.ops.quant import quantize_frames
+
+        data = {k: quantize_frames(v) for k, v in data.items()}
+        fn = inference_fn_q8(model, seed, heads=mode == "int8+heads")
 
     def run(n: int) -> None:
         for _ in range(n):
@@ -134,11 +164,15 @@ def time_inference(model: GFV, batch: int = 64, inner_iters: int = 10, repeats: 
                    ) -> float:
     """Best-of-``repeats`` videos/s of the deployment forward.
 
-    mode: 'bf16', the serving path in the model's own dtype; 'int8' and
-    'int8+heads' (the JAX package's PTQ serving paths) raise until ported.
+    mode: 'bf16', the serving path in the model's own dtype; 'int8', the
+    int8 PTQ serving path (int8 backbones and frame transport, the policy
+    and the classifier in the model's dtype; ``inference_fn_q8``), or
+    'int8+heads' (the heads int8 too). Calibration and weight preparation
+    happen before the timed runs.
     views: test-time crops a video, folded into the batch as in the JAX
     package: the forward runs ``batch * views`` clips and the rate counts
-    videos. fused: the backbone path, as ``inference`` takes it.
+    videos. fused: the backbone path of mode 'bf16', as ``inference`` takes
+    it (the int8 forward has a single one).
     """
     return max(inference_rates(model, batch, inner_iters, repeats, seed, mode, views,
                                fused))

@@ -15,7 +15,12 @@ A frame-budget (AdaFocus+) model evaluates through ``inference_plus``; the
 policy overrides are not defined for it and exit, as the JAX package's do.
 The model keeps float32 parameters and computes in ``model.dtype``, as a
 training run's does. On the GPU unless ``run.platform=cpu``.
-``run.quantize`` (int8 serving) is ROADMAP item 14.
+``run.quantize=int8`` evaluates the int8 serving forward of the model's
+family (models/quant_inference.py): it calibrates on
+``run.quantize_batches`` validation batches (``calibrate_from_loader``),
+prepares the int8 weights once (``prepare_q8``) and feeds the frames in the
+int8 transport format; ``run.quantize_heads=true`` quantizes the policy and
+the classifier too. The policy overrides do not combine with it.
 """
 
 from __future__ import annotations
@@ -42,10 +47,14 @@ from adafocus_torch.models.gfv import GFV, glance_policy_actions, inference_with
 from adafocus_torch.models.gfv_sthsth import (
     actions_per_frame, glance_division_rollout, inference_sthsth_with_actions,
 )
+from adafocus_torch.models.quant_inference import (
+    calibrate_gfv, calibration_batch, family_q8, prepare_q8,
+)
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import patch_offsets, random_patch_actions
+from adafocus_torch.ops.quant import quantize_frames
 from adafocus_torch.train import checkpoint as ckpt
-from adafocus_torch.train.stages import make_eval_step
+from adafocus_torch.train.stages import _final, make_eval_step
 from adafocus_torch.train.stages_plus import make_plus_eval_step
 from adafocus_torch.train.stages_sthsth import make_sthsth_eval_step
 
@@ -69,14 +78,37 @@ def visualize_policy_patches(model, loader, prep, cfg, path, generator) -> None:
     save_patch_grid(path, frames, offs, mc.patch_size)
 
 
-def calibrate_from_loader(*args, **kwargs):
-    """int8 calibration: not ported yet."""
-    raise NotImplementedError("int8 calibration (run.quantize) is ROADMAP item 14")
+def calibrate_from_loader(model: GFV, loader, prep, cfg, n_batches: int) -> dict:
+    """Per-unit int8 activation scales (``calibrate_gfv``) from the first
+    ``n_batches`` validation batches: each runs the family's deployment
+    phases in the compute dtype (``calibration_batch``) for its glance
+    frames and the patches the greedy policy picks."""
+    batches = []
+    for i, raw in enumerate(loader):
+        if i >= n_batches:
+            break
+        batch, _, _ = prep(raw)   # the eval prep draws nothing
+        batches.append(calibration_batch(model, batch["frames"], batch["frames_small"]))
+    if not batches:
+        raise SystemExit("run.quantize: no validation batches to calibrate on")
+    return calibrate_gfv(model, batches, heads=cfg.run.quantize_heads)
 
 
-def make_eval_step_q8(*args, **kwargs):
-    """The int8 serving eval step: not ported yet."""
-    raise NotImplementedError("the int8 eval step (run.quantize) is ROADMAP item 14")
+def make_eval_step_q8(model: GFV, scales: dict, qw: Optional[dict] = None):
+    """The eval step on the int8 serving forward of the model's family
+    (``family_q8``), ``qw`` the cache of ``prepare_q8``. The step's first
+    act quantizes the frames to the int8 transport format, so the accuracy
+    it measures is what the int8 path serves. ``step(batch, generator) ->
+    (logits, {"top1", "top5"})``."""
+    forward = family_q8(model.cfg)
+
+    def step(batch, generator=None):
+        logits = forward(model, scales, quantize_frames(batch["frames"]),
+                         quantize_frames(batch["frames_small"]), device=model.device, qw=qw)
+        top1, top5 = topk_accuracy(_final(logits).float(), batch["labels"])
+        return logits, {"top1": top1, "top5": top5}
+
+    return step
 
 
 def make_eval_step_forced(model: GFV, mode: str):
@@ -155,12 +187,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     check_family(cfg)
-    if cfg.run.quantize:
-        raise NotImplementedError(f"run.quantize={cfg.run.quantize!r}: int8 serving is "
-                                  "ROADMAP item 14")
     policy_mode = cfg.run.eval_policy
     if policy_mode not in ("learned", "random", "center", "oracle"):
         raise SystemExit(f"unknown run.eval_policy {policy_mode!r}")
+    if policy_mode != "learned" and cfg.run.quantize:
+        raise SystemExit("run.eval_policy overrides cannot combine with run.quantize")
+    if cfg.run.quantize not in ("", "int8"):
+        raise SystemExit(f"unknown run.quantize mode {cfg.run.quantize!r}")
     device = select_device(cfg.run)
     log = Logger(os.path.join(cfg.run.ckpt_dir, "evaluate.log"))
     log(echo(cfg))
@@ -197,6 +230,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         log(f"oracle actions table built for {table.shape[0]} videos")
     if policy_mode != "learned":
         eval_step = make_eval_step_forced(model, policy_mode)
+    elif cfg.run.quantize == "int8":
+        scales = calibrate_from_loader(model, loader, prep, cfg, cfg.run.quantize_batches)
+        log(f"int8 PTQ: calibrated {sum(len(s) for s in scales.values())} activation scales "
+            f"on {cfg.run.quantize_batches} val batches")
+        qw = prepare_q8(model, scales)
+        log(f"int8 PTQ: prepared {sum(len(q) for q in qw.values())} quantized weight sets")
+        eval_step = make_eval_step_q8(model, scales, qw)
     else:
         if cfg.run.family == "sthsth":
             learned = make_sthsth_eval_step(model)

@@ -56,7 +56,7 @@ class RunConfig:
     eval_policy: str = "learned"  # evaluate CLI: 'learned' | 'random' |
                                   # 'center' | 'oracle' (needs oracle_gt)
     oracle_gt: str = ""           # gt.npz with per-video target tracks
-    quantize: str = ""            # 'int8' serving eval (item 14)
+    quantize: str = ""            # 'int8': the int8 serving eval (models/quant_inference.py)
     quantize_batches: int = 4
     quantize_heads: bool = False
 

@@ -53,6 +53,14 @@ SIGNATURES = {
         # chid, ns, wide, elem_size, smem -> blocks per SM (0 on error)
         "fused_bottleneck_blocks_per_sm": [_c_int] * 5,
     },
+    "int8_conv": {
+        # x, w, rescale, bias, out, m, h, w, cin, ho, wo, cout, k, kpad,
+        # cout_pad, kh, stride, pad, act, vec, out_kind, stream
+        "int8_conv": [_c_ptr] * 5 + [_c_ll] + [_c_int] * 15 + [_c_ptr],
+        # x, w9, rescale, bias, out, n, h, w, c, ho, wo, stride, act, vec,
+        # out_kind, stream
+        "int8_dwconv": [_c_ptr] * 5 + [_c_int] * 10 + [_c_ptr],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -25,7 +25,9 @@ inference does not use included; a leaf name the bridge does not know
 raises.
 
 ``ppo_state_from_flax`` carries a stage-2 learner's Adam moments and counts
-the same way, so that a stage-2 run continues from a JAX state.
+the same way, so that a stage-2 run continues from a JAX state, and
+``quant_scales_from_jax`` the int8 activation scales of JAX's
+``calibrate_gfv``.
 """
 
 from __future__ import annotations
@@ -110,3 +112,15 @@ def ppo_state_from_flax(flax_ppo: Any, ppo: PPOState) -> None:
     for key, p in params.items():
         ppo.optimizer.state[p] = {"step": count.clone(), **moments[key]}
     ppo.step = int(flax_ppo.step)
+
+
+def quant_scales_from_jax(scales: Mapping, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's ``calibrate_gfv`` output as numpy arrays ({'glancer':
+    {unit: ()}, 'focuser': {unit: ()}, optionally 'heads': {point: (C,)}})
+    -> the port's scales: float32 tensors on ``device`` under the same names
+    (the unit and point names, ``block_3_1/dw``, ``layer2_0/conv2``,
+    ``cls/gru/h``, are the same strings in both packages)."""
+    return {group: {name: torch.tensor(np.asarray(v, np.float32), device=device)
+                    for name, v in sub.items()}
+            for group, sub in scales.items()}
+

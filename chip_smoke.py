@@ -148,13 +148,39 @@ Phases, each raising on failure:
      steps at B=2; the CLI with ``model.frame_budget=8 model.plus_rl=true``
      (B=32, 64 synthetic clips in a device cache): stages 1 -> 2 -> 3 and
      evaluate, each with its patch launches counted.
+ 12. int8 PTQ serving (``models.quant_inference``, ``ops.quant``), this
+     slice's main path. The two int8 kernels of ``csrc/int8_conv.cu`` (built
+     in phase 2, with their registers and spills) against their plain
+     versions at every int8 unit shape of the flagship's glancer (224^2)
+     and focuser (96^2 patches), of the matched configuration's focuser
+     (144^2) and of the flagship's heads at M = 1 and 64: the int32
+     accumulators equal, the float32 outputs bit-identical but where the
+     plain version's float64-emulated FMA double-rounds (counted, each
+     within 1 ulp), the bf16 store the float32 output rounded; each shape
+     timed at N=64 beside the plain version and the yardstick
+     (``torch._int_mm`` where it takes the product, else cuDNN's or
+     cuBLAS's bf16 op) with its bound. Then each family (the flagship, the
+     matched configuration, ``plus_cfg((96, 8))``) in modes int8 and
+     int8+heads at B=2, calibrated on two seeded batches: logits on int8
+     transport frames against the port's bf16 and float32 forwards
+     (tests/test_quant.py's cosine bars), int8 transport against float
+     frames, the share of patch offsets agreeing with bf16's, launches
+     (exactly 1 patch, 86 ``int8_conv``, 17 ``int8_dwconv`` and no fused
+     block a forward in int8); at B=64 videos/s of 3 runs of 10 forwards
+     in int8 beside bf16 (the flagship in int8+heads too), peak memory, the
+     flagship's int8 phase split and batch-1 latency, calibration and
+     ``prepare_q8`` seconds; the evaluate CLI with ``run.quantize=int8``
+     (and ``run.quantize_heads=true``) on phase 9's synthetic clips from
+     the device cache, its launches counted and no frame byte from the
+     host.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
 configuration's results, the bench, the CLI's results, phase 10's and
-phase 11's results and the kernel table (each kernel's launches on every path, its times at
-the flagship's and the matched configuration's shapes) as JSON lines, then as its last line
+phase 11's and phase 12's results and the kernel table (each kernel's launches on every
+path, its times at the flagship's and the matched configuration's shapes; the int8 kernels'
+at phase 12's unit shapes) as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2756,6 +2782,595 @@ def plus_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: int8 PTQ serving.
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak (data sheet)
+INT8_CHECK_N = 2            # frames / patches of each unit shape's check against the plain version
+INT8_TIME_N = 64            # frames / patches of each unit shape's timing
+INT8_HEAD_M = (1, 64)       # rows of the heads' products: batch 1, and B=64 videos
+HEAD_STEPS = {"policy/gru/h": 16, "cls/gru/h": 16}   # the flagship's T GRU steps a forward
+
+
+def _q8_unit_shapes(backbone, kind: str, size: int, device) -> list:
+    """Every int8 unit of one backbone at input side ``size``, in forward
+    order: (name, ConvBNAct, (H, W, Cin)), from one pass at N=1 whose runner
+    records each unit and runs it in float32."""
+    import torch
+
+    from adafocus_torch.models import quant_inference as qi
+    from adafocus_torch.models.fused_inference import _conv_bn
+
+    seen = []
+
+    def record(name, x, unit):
+        if name != "stem":
+            seen.append((name, unit, tuple(x.shape[1:])))
+        return _conv_bn(x, unit, torch.float32)
+
+    fn = qi._mbv2_backbone if kind == "mbv2" else qi._resnet_backbone
+    with torch.inference_mode():
+        fn(backbone, torch.zeros((1, size, size, 3), device=device), record)
+    return seen
+
+
+def _q8_head_shapes(model) -> list:
+    """The flagship's int8 head products: (name, weight (out, in), bias,
+    launches a forward in ``int8+heads``)."""
+    p, c = model.policy, model.classifier
+    return [("policy/proj", p.encoder.proj.weight[:, :, 0, 0], p.encoder.proj.bias, 1),
+            ("policy/fc", p.encoder.fc.weight, p.encoder.fc.bias, 1),
+            ("policy/gru/x", p.gru.weight_ih, p.gru.bias_ih, 1),
+            ("policy/gru/h", p.gru.weight_hh, p.gru.bias_hh, HEAD_STEPS["policy/gru/h"]),
+            ("policy/actor", p.actor.weight, p.actor.bias, 1),
+            ("policy/critic", p.critic.weight, p.critic.bias, 1),
+            ("cls/gru/x", c.gru.weight_ih, c.gru.bias_ih, 1),
+            ("cls/gru/h", c.gru.weight_hh, c.gru.bias_hh, HEAD_STEPS["cls/gru/h"]),
+            ("cls/fc", c.fc.weight, c.fc.bias, 1)]
+
+
+def _int8_case(qc, x_q, stride: int, groups: int, act, dense: bool):
+    """(kernel(out_dtype), the exact accumulators, the plain epilogue(out_dtype))
+    of one unit."""
+    from adafocus_torch.ops import quant as q
+
+    if dense:
+        def run(dtype):
+            return q.int8_dense(x_q, qc, act, dtype)
+        acc = x_q.double() @ qc.kernel_q.double().t()
+    else:
+        def run(dtype):
+            return q.int8_conv(x_q, qc, stride, groups, act, dtype)
+        acc = q.conv_acc_reference(x_q, qc.kernel_q, stride, groups)
+
+    def plain(dtype):
+        return q.epilogue_reference(acc, qc.rescale, qc.bias, act, dtype)
+
+    return run, acc, plain
+
+
+def _check_int8_case(run, acc, plain, label: str) -> dict:
+    """One unit's kernel against its plain version: the int32 accumulators
+    equal; the float32 outputs bit-identical but where the float64-emulated
+    FMA double-rounds (counted, each within 1 float32 ulp); the bf16 output
+    the float32 one rounded."""
+    import torch
+
+    got_acc = run(torch.int32)
+    torch.cuda.synchronize()
+    if got_acc.shape != acc.shape or not torch.equal(got_acc.double(), acc):
+        raise AssertionError(f"int8 {label}: accumulators differ from the plain version "
+                             f"(max |d| {(got_acc.double() - acc).abs().max().item()})")
+    got, want = run(torch.float32), plain(torch.float32)
+    diff = got != want
+    n_diff = int(diff.sum())
+    if n_diff:
+        ulps = (got[diff].view(torch.int32).long() - want[diff].view(torch.int32).long()).abs()
+        if ulps.max().item() > 1:
+            raise AssertionError(f"int8 {label}: {n_diff} float32 outputs differ, up to "
+                                 f"{ulps.max().item()} ulp")
+    if not torch.equal(run(torch.bfloat16), got.to(torch.bfloat16)):
+        raise AssertionError(f"int8 {label}: the bf16 store is not the float32 output rounded")
+    return {"double_rounded": n_diff, "max_abs_err": (got - want).abs().max().item(),
+            "values": got.numel()}
+
+
+def _int8_cost(x_q, qc, out_shape, k: int) -> tuple:
+    """(bytes, operations) one call must move and do: the int8 input and
+    weight read once, the bf16 output written once, rescale and bias; two
+    operations a multiply-add."""
+    import math
+
+    out = math.prod(out_shape)
+    moved = x_q.numel() + qc.kernel_q.numel() + 2 * out + 8 * out_shape[-1]
+    return moved, 2 * out * k
+
+
+def _int8_library(x_q, qc, stride: int, groups: int, dense: bool):
+    """The yardstick of one unit: ``torch._int_mm`` on the same int8 product
+    where it takes it (a 1x1 stride-1 conv or a dense, M > 16, K and N
+    multiples of 8), else the bf16 op at the same shape (cuDNN's conv, or a
+    bf16 matmul). Returns (name, fn)."""
+    import torch
+    from torch.nn import functional as F
+
+    w = qc.kernel_q
+    cout = w.shape[0]
+    k = w[0].numel()
+    pointwise = dense or (w.dim() == 4 and w.shape[2] == 1 and stride == 1 and groups == 1)
+    if pointwise:
+        a = x_q.reshape(-1, k)
+        if a.shape[0] > 16 and k % 8 == 0 and cout % 8 == 0:
+            wt = w.reshape(cout, k).t()
+            try:
+                torch._int_mm(a, wt)
+                return "torch._int_mm", lambda: torch._int_mm(a, wt)
+            except RuntimeError:
+                pass
+        a16, w16 = a.bfloat16(), w.reshape(cout, k).bfloat16()
+        return "bf16 matmul", lambda: a16 @ w16.t()
+    x16 = x_q.permute(0, 3, 1, 2).bfloat16()
+    w16 = w.bfloat16().contiguous(memory_format=torch.channels_last)
+    pad = (w.shape[2] - 1) // 2
+    return "cuDNN bf16 conv", lambda: F.conv2d(x16, w16, stride=stride, padding=pad,
+                                               groups=groups)
+
+
+def _int8_unit_rows(units: list, dense: bool, n_check: int, n_time: int, gen, device,
+                    label: str) -> list:
+    """Each distinct unit shape of ``units`` ((name, weight qc, input shape,
+    stride, groups, act, launches a forward)): checked at ``n_check``
+    against the plain version, then timed at ``n_time`` beside the plain
+    version and the yardstick, with its bound. One row a shape, the
+    launches of every unit of that shape summed."""
+    import torch
+
+    rows, by_key = [], {}
+    for name, qc, in_shape, stride, groups, act, launches in units:
+        key = (in_shape, tuple(qc.kernel_q.shape), stride, groups, act)
+        if key in by_key:
+            by_key[key]["launches"] += launches
+            by_key[key]["units"].append(name)
+            continue
+        k = qc.kernel_q[0].numel()
+        kind = "int8_dwconv" if groups > 1 else "int8_conv"
+        x_chk = torch.randint(-127, 128, (n_check,) + in_shape, generator=gen, device=device,
+                              dtype=torch.int8)
+        run, acc, plain = _int8_case(qc, x_chk, stride, groups, act, dense)
+        shape = (f"M={n_check}x{in_shape[0]} K={k} N={qc.kernel_q.shape[0]}" if dense else
+                 f"{in_shape[0]}x{in_shape[1]}x{in_shape[2]} k{qc.kernel_q.shape[-1]} "
+                 f"s{stride} -> {qc.kernel_q.shape[0]}{' dw' if groups > 1 else ''}")
+        check = _check_int8_case(run, acc, plain, f"{label} {name} {shape}")
+        del x_chk, acc
+        x = torch.randint(-127, 128, (n_time,) + in_shape, generator=gen, device=device,
+                          dtype=torch.int8)
+        run, acc, plain = _int8_case(qc, x, stride, groups, act, dense)
+        out_shape = tuple(run(torch.int32).shape)
+        lib_name, lib = _int8_library(x, qc, stride, groups, dense)
+        with torch.inference_mode():
+            ms = _time_ms(lambda: run(torch.bfloat16), iters=20, warmup=3)
+            plain_ms = _time_ms(lambda: plain(torch.bfloat16), iters=3, warmup=1)
+            library_ms = _time_ms(lib, iters=20, warmup=3)
+        moved, ops = _int8_cost(x, qc, out_shape, k)
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
+        row = by_key[key] = {
+            "kernel": kind, "units": [name], "launches": launches, "shape": shape,
+            "n": n_time, "ms": ms, "plain_ms": plain_ms, "library": lib_name,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "tops": ops / ms / 1e9, **check}
+        rows.append(row)
+        print(f"{kind} {label} {name} {shape}: kernel {ms!r} ms at N={n_time} "
+              f"({row['tops']!r} TOP/s), plain {plain_ms!r} ms, {lib_name} {library_ms!r} ms, "
+              f"bound {row['bound_ms']!r} ms ({row['bound_by']}); accumulators equal, "
+              f"{check['double_rounded']} of {check['values']} float32 outputs double-rounded",
+              flush=True)
+        del x, acc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _backbone_units(backbone, kind: str, size: int, device) -> list:
+    """``_int8_unit_rows``' entries of one backbone: the real folded weights
+    quantized, a fixed input scale."""
+    import torch
+
+    from adafocus_torch.models.quant_inference import _ACT_NAMES
+    from adafocus_torch.ops.fused_blocks import fold_bn
+    from adafocus_torch.ops.quant import QConv, prepare_qconv, quantize_weight
+
+    units = []
+    for name, unit, in_shape in _q8_unit_shapes(backbone, kind, size, device):
+        kernel, bias = fold_bn(unit)
+        kq, ws = quantize_weight(kernel)
+        groups = unit.conv.groups
+        qc = prepare_qconv(QConv(kq, ws, bias, torch.tensor(0.05, device=device)),
+                           depthwise=groups > 1)
+        units.append((name, qc, in_shape, unit.conv.stride[0], groups, _ACT_NAMES[unit.act], 1))
+    return units
+
+
+def _head_units(model, m: int, gen, device) -> list:
+    import torch
+
+    from adafocus_torch.ops.quant import QConv, prepare_qconv, quantize_weight
+
+    units = []
+    for name, weight, bias, launches in _q8_head_shapes(model):
+        kq, ws = quantize_weight(weight.float())
+        b = torch.randn(kq.shape[0], generator=gen, device=device) * 0.1
+        qc = prepare_qconv(QConv(kq, ws, b, torch.ones((), device=device)))
+        units.append((name, qc, (kq.shape[1],), 1, 1, None, launches))
+    return units
+
+
+def _int8_kernel_row(name: str, rows: list, line: int, shape: str) -> dict:
+    total = {k: sum(r["launches"] * r[k] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_bytes = sum(r["launches"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
+    return {"name": name, "route": "cuda", "source": "adafocus_torch/csrc/int8_conv.cu",
+            "replaces": f"adafocus_tpu/ops/quant.py:{line}",
+            "max_abs_err": max(r["max_abs_err"] for r in rows), **total,
+            "bound_by": "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations",
+            "double_rounded": sum(r["double_rounded"] for r in rows), "shape": shape}
+
+
+def check_int8_kernels(device) -> tuple:
+    """Phase 12's kernel check: every int8 unit shape of the flagship's
+    glancer (224^2) and focuser (96^2 patches), of the matched
+    configuration's focuser (144^2) and the flagship's heads at M = 1 and
+    64, against the plain version (accumulators equal, outputs bit-identical
+    but for double rounding), then timed. Returns (the kernels line's rows
+    for int8_conv and int8_dwconv, every shape's row)."""
+    import torch
+
+    from adafocus_torch.benchmark import sthsth_cfg
+    from adafocus_torch.models.gfv import GFV, flagship
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    cpu_gen = torch.Generator().manual_seed(SEED + 12)
+    flag = _randomize_bn(GFV(flagship(), device="cpu", generator=cpu_gen,
+                             param_dtype=torch.float32), cpu_gen).to(device)
+    flag_rows = (_int8_unit_rows(_backbone_units(flag.glancer, "mbv2", 224, device), False,
+                                 INT8_CHECK_N, INT8_TIME_N, gen, device, "flagship glancer")
+                 + _int8_unit_rows(_backbone_units(flag.focuser, "resnet", 96, device), False,
+                                   INT8_CHECK_N, INT8_TIME_N, gen, device, "flagship focuser"))
+    head_rows = {m: _int8_unit_rows(_head_units(flag, m, gen, device), True, m, m, gen,
+                                    device, f"flagship heads M={m}") for m in INT8_HEAD_M}
+    del flag
+    matched = _randomize_bn(GFV(sthsth_cfg(144), device="cpu", generator=cpu_gen,
+                                param_dtype=torch.float32), cpu_gen).to(device)
+    matched_rows = _int8_unit_rows(_backbone_units(matched.focuser, "resnet", 144, device),
+                                   False, INT8_CHECK_N, INT8_TIME_N, gen, device,
+                                   "matched focuser")
+    del matched
+    torch.cuda.empty_cache()
+    conv = [r for r in flag_rows if r["kernel"] == "int8_conv"]
+    dw = [r for r in flag_rows if r["kernel"] == "int8_dwconv"]
+    n = INT8_TIME_N
+    conv_row = _int8_kernel_row(
+        "int8_conv", conv, 74, f"flagship int8 units, 224^2 glancer and 96^2 focuser, "
+        f"N={n} frames and {n} patches, summed over one forward's units")
+    conv_row["matched"] = _int8_kernel_row(
+        "int8_conv", matched_rows, 74,
+        f"matched focuser int8 units at 144^2, N={n} patches, summed over one forward's units")
+    conv_row["heads"] = {m: _int8_kernel_row(
+        "int8_conv", rows, 86, f"flagship heads at M={m}, summed over one int8+heads "
+        f"forward's products") for m, rows in head_rows.items()}
+    dw_row = _int8_kernel_row(
+        "int8_dwconv", dw, 74, f"flagship glancer depthwise units at 224^2, N={n} frames, "
+        f"summed over one forward's units")
+    for row in (conv_row, dw_row):
+        print(f"{row['name']}: {row['shape']}: kernel {row['ms']!r} ms, plain "
+              f"{row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound "
+              f"{row['bound_ms']!r} ms ({row['bound_by']}); {row['double_rounded']} "
+              f"double-rounded outputs", flush=True)
+    shapes = flag_rows + matched_rows + [r for rows in head_rows.values() for r in rows]
+    return [conv_row, dw_row], shapes
+
+
+# the int8 forward against the port's bf16 and float32 forwards: the JAX
+# package's own bars (tests/test_quant.py:124 and :200 for the ActivityNet
+# and sth-sth families, :164 for AdaFocus+, whose untrained selector sits
+# on near-ties; :338 int8 transport frames against float frames)
+Q8_COS = {"flagship": 0.95, "matched": 0.95, "plus": 0.85}
+Q8_TRANSPORT_COS = 0.99
+Q8_SMALL_B = 2               # the checks' batch; calibration on two such batches
+Q8_B = 64                    # the timed batch
+Q8_LAUNCHES = {"extract_patches": 1, "int8_conv": 86, "int8_dwconv": 17,
+               "fused_inverted_residual": 0, "fused_bottleneck": 0}
+Q8_PHASES = ("glance", "policy", "extract", "focus", "classify")
+
+
+def _q8_counts(reset: bool = False) -> dict:
+    from adafocus_torch.ops.fused_blocks import fused_bottleneck, fused_inverted_residual
+    from adafocus_torch.ops.patch import extract_patches
+    from adafocus_torch.ops.quant import int8_conv, int8_dwconv
+
+    fns = {"extract_patches": extract_patches, "int8_conv": int8_conv,
+           "int8_dwconv": int8_dwconv, "fused_inverted_residual": fused_inverted_residual,
+           "fused_bottleneck": fused_bottleneck}
+    if reset:
+        for fn in fns.values():
+            fn.launches = 0
+    return {name: fn.launches for name, fn in fns.items()}
+
+
+def _cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm() + 1e-12)).item()
+
+
+def _q8_configs() -> dict:
+    from adafocus_torch.benchmark import plus_cfg, sthsth_cfg
+    from adafocus_torch.models.gfv import flagship
+
+    return {"flagship": flagship(), "matched": sthsth_cfg(144), "plus": plus_cfg(PLUS_POINT)}
+
+
+def _q8_inputs(cfg, b: int, seed: int, device):
+    """Frames of ImageNet-normalized uniform pixels (the transport format's
+    range), float32: (B, Tf, S, S, 3) and (B, T, g, g, 3)."""
+    import torch
+
+    from adafocus_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+
+    gen = torch.Generator().manual_seed(seed)
+    mean, std = torch.tensor(IMAGENET_MEAN), torch.tensor(IMAGENET_STD)
+    s, g = cfg.image_size, cfg.glance_size
+    frames = (torch.rand((b, cfg.t_focuser, s, s, 3), generator=gen) - mean) / std
+    small = (torch.rand((b, cfg.num_frames, g, g, 3), generator=gen) - mean) / std
+    return frames.to(device), small.to(device)
+
+
+@contextlib.contextmanager
+def _patch_actions(store: list):
+    """Every extraction's actions into ``store`` (the bf16 and the int8
+    forwards' own calls)."""
+    from adafocus_torch.models import gfv, gfv_sthsth
+    from adafocus_torch.models import quant_inference as qi
+
+    real = gfv.extract_for_frames
+
+    def spy(frames, actions, *a, **k):
+        store.append(actions.detach().float().clone())
+        return real(frames, actions, *a, **k)
+
+    mods = (gfv, gfv_sthsth, qi)
+    for m in mods:
+        m.extract_for_frames = spy
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.extract_for_frames = real
+
+
+def q8_forward_checks(device, card: str) -> dict:
+    """Phase 12 at B=2, each family (the flagship, the matched sth-sth
+    configuration, AdaFocus+ at plus_cfg((96, 8))) in modes int8 and
+    int8+heads: calibrated on two seeded batches (the family's deployment
+    phases in bf16, ``calibration_batch``), weights prepared, the int8
+    forward on int8 transport frames against the port's bf16 and float32
+    forwards on the same weights and float frames (cosine bars
+    ``Q8_COS``), the share of patch offsets the int8 and bf16 forwards
+    agree on, and each forward's launches (exactly ``Q8_LAUNCHES`` at the
+    flagship in int8); the flagship's int8 transport frames against float
+    frames through the same int8+heads forward (``Q8_TRANSPORT_COS``).
+    Returns the results and the bf16 models, kept for the timing."""
+    import torch
+
+    from adafocus_torch.benchmark import inference_fn
+    from adafocus_torch.models import quant_inference as qi
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.ops.quant import quantize_frames
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, models = {}, {}
+    for fam, cfg16 in _q8_configs().items():
+        cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
+        m16 = GFV(cfg16, device=device, generator=torch.Generator().manual_seed(SEED))
+        m32 = GFV(cfg32, device=device, generator=torch.Generator().manual_seed(SEED))
+        frames, small = _q8_inputs(cfg16, Q8_SMALL_B, SEED + 120, device)
+        f16, s16 = frames.bfloat16(), small.bfloat16()
+        batches = [qi.calibration_batch(m16, *(t.bfloat16() for t in _q8_inputs(
+            cfg16, Q8_SMALL_B, SEED + 121 + i, device))) for i in range(2)]
+        ref_actions = []
+        with _patch_actions(ref_actions):
+            ref16 = inference_fn(m16)(f16, s16)
+        ref32 = inference_fn(m32)(frames, small)
+        span = cfg16.image_size - cfg16.patch_size
+        out[fam] = {}
+        for heads in (False, True):
+            mode = "int8+heads" if heads else "int8"
+            t0 = time.perf_counter()
+            scales = qi.calibrate_gfv(m16, batches, heads=heads)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            qw = qi.prepare_q8(m16, scales)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            acts = []
+            fq, sq = quantize_frames(f16), quantize_frames(s16)
+            _q8_counts(reset=True)
+            with _patch_actions(acts):
+                logits = qi.family_q8(cfg16)(m16, scales, fq, sq, device=device, qw=qw)
+            torch.cuda.synchronize()
+            launches = _q8_counts()
+            if not torch.isfinite(logits.float()).all() or logits.shape != ref16.shape:
+                raise AssertionError(f"{fam} {mode}: logits {tuple(logits.shape)} not finite "
+                                     f"or not {tuple(ref16.shape)}")
+            cos16, cos32 = _cosine(logits, ref16), _cosine(logits, ref32)
+            agree = (torch.floor(acts[0] * span) == torch.floor(ref_actions[0] * span)
+                     ).all(-1).float().mean().item()
+            row = {"cos_vs_bf16": cos16, "cos_vs_float32": cos32, "action_agreement": agree,
+                   "launches": launches, "calibrate_s": t1 - t0, "prepare_s": t2 - t1}
+            print(f"int8 {fam} B={Q8_SMALL_B} {mode}: logits cosine vs bf16 {cos16!r}, vs "
+                  f"float32 {cos32!r} (bar {Q8_COS[fam]}); patch offsets agreeing with bf16's "
+                  f"{agree!r}; launches {launches}; calibrate {row['calibrate_s']!r} s, "
+                  f"prepare_q8 {row['prepare_s']!r} s ({card})", flush=True)
+            if not min(cos16, cos32) > Q8_COS[fam]:
+                raise AssertionError(f"int8 {fam} {mode}: cosine {cos16}, {cos32} <= "
+                                     f"{Q8_COS[fam]}")
+            # every family runs the same backbones: 86 + 17 int8 launches a
+            # forward in int8, the heads' on top in int8+heads
+            want = dict(Q8_LAUNCHES, int8_conv=launches["int8_conv"] if heads else 86)
+            if launches != want or (heads and launches["int8_conv"] <= 86):
+                raise AssertionError(f"int8 {fam} {mode}: launches {launches}, want {want}")
+            if heads and fam == "flagship":
+                row["head_launches"] = launches["int8_conv"] - Q8_LAUNCHES["int8_conv"]
+                print(f"int8 flagship int8+heads: {row['head_launches']} int8_conv launches of "
+                      f"the heads a forward", flush=True)
+                float_frames = qi.inference_q8(m16, scales, f16, s16, device=device, qw=qw)
+                row["transport_cos"] = _cosine(logits, float_frames)
+                print(f"int8 flagship int8+heads: int8 transport frames vs float frames, "
+                      f"cosine {row['transport_cos']!r} (bar {Q8_TRANSPORT_COS})", flush=True)
+                if not row["transport_cos"] > Q8_TRANSPORT_COS:
+                    raise AssertionError(f"int8 transport: cosine {row['transport_cos']}")
+            out[fam][mode] = row
+        del m32
+        models[fam] = m16
+        torch.cuda.empty_cache()
+    return out, models
+
+
+def q8_throughput(models: dict, device, card: str) -> dict:
+    """Phase 12's timing at B=Q8_B: videos/s of 3 runs of 10 forwards in
+    int8 beside bf16 in the same call, each family (the flagship also in
+    int8+heads), the int8 flagship's phase split by CUDA events, its
+    batch-1 latency in int8 and bf16, peak memory of each int8 run."""
+    import torch
+
+    from adafocus_torch.benchmark import inference_rates
+    from adafocus_torch.models import quant_inference as qi
+    from adafocus_torch.models.gfv import extract_for_frames, fuse_and_classify
+    from adafocus_torch.ops.quant import quantize_frames
+
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    for fam, model in models.items():
+        modes = ("bf16", "int8", "int8+heads") if fam == "flagship" else ("bf16", "int8")
+        out[fam] = {}
+        for mode in modes:
+            torch.cuda.reset_peak_memory_stats()
+            rates = inference_rates(model, Q8_B, 10, 3, SEED, mode=mode)
+            out[fam][mode] = {"videos_per_s": rates,
+                              "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"int8 {fam} B={Q8_B}: videos/s " + "; ".join(
+            f"{m} {v['videos_per_s']!r} (peak {v['peak_bytes'] / 2**30:.2f} GiB)"
+            for m, v in out[fam].items()) + f" ({card})", flush=True)
+    flag = models["flagship"]
+    cfg = flag.cfg
+    out["flagship"]["batch1_latency_ms"] = {
+        mode: [1e3 / r for r in inference_rates(flag, 1, 10, 3, SEED, mode=mode)]
+        for mode in ("bf16", "int8")}
+    print(f"int8 flagship batch-1 latency ms: {json.dumps(out['flagship']['batch1_latency_ms'])}"
+          f" ({card})", flush=True)
+    frames, small = (t.bfloat16() for t in _q8_inputs(cfg, Q8_B, SEED + 130, device))
+    scales = qi.calibrate_gfv(flag, [qi.calibration_batch(flag, frames[:2], small[:2])])
+    qw = qi.prepare_q8(flag, scales)
+    fq, sq = quantize_frames(frames), quantize_frames(small)
+    del frames, small
+    b, t = sq.shape[:2]
+    phases = dict.fromkeys(Q8_PHASES, 0.0)
+    n_timed = 5
+    with torch.inference_mode():
+        for i in range(n_timed + 1):   # the first forward is warm-up
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            fmap, pooled = qi.q8_glance(flag, scales, qi._dequant_frames(sq, cfg.dtype), qw)
+            ev[1].record()
+            roll = flag.policy_rollout(fmap)
+            ev[2].record()
+            patches = extract_for_frames(fq, roll["actions"], cfg.image_size, cfg.patch_size)
+            ev[3].record()
+            local = qi.q8_focus(flag, scales, qi._dequant_frames(patches, cfg.dtype), qw)
+            ev[4].record()
+            fuse_and_classify(flag, pooled, local.reshape(b, t, -1))
+            ev[5].record()
+            torch.cuda.synchronize()
+            if i:
+                for k, name in enumerate(Q8_PHASES):
+                    phases[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
+    out["flagship"]["int8_phase_ms"] = phases
+    print(f"int8 flagship B={Q8_B} phase ms {json.dumps(phases)} ({card})", flush=True)
+    return out
+
+
+def q8_cli(device, card: str) -> dict:
+    """The evaluate CLI with ``run.quantize=int8`` (and with
+    ``run.quantize_heads=true``) on phase 9's synthetic clips from the
+    device cache, a fresh model of ``configs/actnet_default.yaml``: it
+    calibrates on the val batches, prepares the int8 weights (one batch-1
+    forward) and evaluates; exactly one patch launch a calibration batch,
+    one for the preparation and one an eval batch; the int8 kernels launched
+    by every int8 forward; no frame byte from the host after the fill."""
+    import tempfile
+
+    import torch
+
+    from adafocus_torch.cli import evaluate as cli_evaluate
+
+    n_val = -(-CLI_VIDEOS // CLI_B)
+    preps, out = [], {}
+    real_prep = cli_evaluate.make_batch_prep
+
+    def prep_spy(*a, **k):
+        preps.append(real_prep(*a, **k))
+        return preps[-1]
+
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    cli_evaluate.make_batch_prep = prep_spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for mode, extra in (("int8", ()), ("int8+heads", ("run.quantize_heads=true",))):
+                args = _cli_args(tmp, "run.quantize=int8", f"run.ckpt_dir={tmp}/{mode}", *extra)
+                _q8_counts(reset=True)
+                t0 = time.perf_counter()
+                res = _run_cli(cli_evaluate.main, args, os.path.join(tmp, "cli.log"))
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = _q8_counts()
+                host = preps[-1].host_frame_bytes
+                forwards = n_val + 1
+                if launches["extract_patches"] != 2 * n_val + 1 or host \
+                        or launches["int8_dwconv"] != 17 * forwards \
+                        or launches["int8_conv"] < 86 * forwards \
+                        or not all(math.isfinite(v) for v in res.values()):
+                    raise AssertionError(f"CLI int8 evaluate {mode}: {res}, launches {launches}, "
+                                         f"{host} host frame bytes")
+                out[mode] = {"results": res, "launches": launches, "seconds": seconds,
+                             "host_frame_bytes": host}
+                print(f"CLI evaluate run.quantize=int8 ({mode}) B={CLI_B}, {CLI_VIDEOS} clips: "
+                      f"{json.dumps(res)}; launches {launches}; {seconds!r} s with the cache fill, "
+                      f"calibration and prepare; 0 host frame bytes ({card})", flush=True)
+    finally:
+        cli_evaluate.make_batch_prep = real_prep
+        torch.backends.cudnn.benchmark = autotune
+    return out
+
+
+def q8_phase(device, card: str) -> dict:
+    """Phase 12 as a whole: the int8 kernels against their plain versions and
+    timed, the int8 forwards' checks and launches, the timing, the CLI."""
+    import torch
+
+    start = time.perf_counter()
+    rows, shapes = check_int8_kernels(device)
+    checks, models = q8_forward_checks(device, card)
+    timing = q8_throughput(models, device, card)
+    del models
+    torch.cuda.empty_cache()
+    cli = q8_cli(device, card)
+    for row in rows:
+        row["launches"] = checks["flagship"]["int8"]["launches"][row["name"]]
+    return {"kernel_rows": rows, "shapes": shapes, "checks": checks, "timing": timing,
+            "cli": cli, "seconds": time.perf_counter() - start}
+
+
 def main() -> int:
     import torch
 
@@ -2872,6 +3487,8 @@ def main() -> int:
     done("phase 10")
     plus = plus_phase(device, card)
     done("phase 11")
+    q8 = q8_phase(device, card)
+    done(f"phase 12 ({q8['seconds']:.1f} s)")
     # each kernel's count from the run of this slice's main path, the
     # AdaFocus+ CLI's stage 1 (the patch kernel; the plus path has no fused
     # dispatch), and for the blocks the matched sth-sth forward's fused path;
@@ -2908,7 +3525,12 @@ def main() -> int:
              f"train stage 1, {n_steps} steps": train["launches"],
              **{f"{k}, {1 if k == 'eval' else 2} step(s)": v
                 for k, v in train_launches.items()},
-             f"train stage 2, {n_steps} steps": stage2["launches"]}
+             f"train stage 2, {n_steps} steps": stage2["launches"],
+             **{f"{fam} {mode} inference, 1 forward": row["launches"]
+                for fam, modes in q8["checks"].items() for mode, row in modes.items()},
+             **{f"CLI evaluate run.quantize=int8 ({mode}), {-(-CLI_VIDEOS // CLI_B)} "
+                f"calibration batches, the preparation and as many eval batches": v["launches"]
+                for mode, v in q8["cli"].items()}}
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
     rows[0]["launches"] = plus["cli"]["stages"][1]["launches"]["extract_patches"]
     gp = plus["serving"]["gather_and_patch"]
@@ -2928,8 +3550,11 @@ def main() -> int:
         row["launches"] = matched["launches"]["on"][row["name"]]
         row["matched"] = {k: mrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "max_abs_err", "shape")}
+    rows += q8["kernel_rows"]
+    # a path's count of a kernel it was not counted for (the int8 kernels
+    # before phase 12) is None
     for row in rows:
-        row["launches_by_path"] = {p: c[row["name"]] for p, c in paths.items()}
+        row["launches_by_path"] = {p: c.get(row["name"]) for p, c in paths.items()}
     print(json.dumps({"extraction_profile": prof}), flush=True)
     print(json.dumps({"patch_shapes": patch_shapes}), flush=True)
     print(json.dumps({"fused_shapes": per_shape}), flush=True)
@@ -2941,6 +3566,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"sthsth_train": sthsth}), flush=True)
     print(json.dumps({"plus": plus}), flush=True)
+    print(json.dumps({"int8": {k: v for k, v in q8.items() if k != "kernel_rows"}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

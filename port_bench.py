@@ -18,7 +18,13 @@ Prints ONE JSON line:
   frames, TSM backbones, continuous policy, average consensus; the
   reference's published configuration) on both paths, each with
   ``vs_ref_gpu_same_config``, its videos/s over the reference's published
-  143.8 videos/s (RTX 2080Ti, BASELINE.md).
+  143.8 videos/s (RTX 2080Ti, BASELINE.md);
+- ``int8``: the int8 PTQ serving path (``time_inference(mode="int8")``:
+  int8 backbones and frame transport, calibrated on seeded random data and
+  prepared before the timed runs): videos/s of the flagship, of the matched
+  configuration and of AdaFocus+ at ``plus_cfg((96, 8))`` (beside its bf16
+  rate, which the lines above do not give), and the flagship's batch-1
+  latency.
 
 Each rate is the best of ``BENCH_REPEATS`` (3) runs of ``BENCH_ITERS`` (10)
 forwards at ``BENCH_BATCH`` (64) videos, timed by CUDA events after warm-up
@@ -51,7 +57,9 @@ def bench(device, batch: int = 64, inner_iters: int = 10, repeats: int = 3) -> d
     """The bench's result as a dict (what ``main`` prints)."""
     import torch
 
-    from adafocus_torch.benchmark import REFERENCE_VIDEOS_PER_S, sthsth_cfg, time_inference
+    from adafocus_torch.benchmark import (
+        REFERENCE_VIDEOS_PER_S, plus_cfg, sthsth_cfg, time_inference,
+    )
     from adafocus_torch.models.gfv import GFV, flagship
 
     def model(cfg):
@@ -63,11 +71,20 @@ def bench(device, batch: int = 64, inner_iters: int = 10, repeats: int = 3) -> d
              for f in PATHS}
     latency = {f: 1e3 / time_inference(flag, 1, inner_iters, repeats, SEED, fused=f)
                for f in PATHS}
+    int8 = {"flagship": time_inference(flag, batch, inner_iters, repeats, SEED, mode="int8"),
+            "batch1_latency_ms": 1e3 / time_inference(flag, 1, inner_iters, repeats, SEED,
+                                                      mode="int8")}
     del flag
     matched = model(sthsth_cfg(144))
     matched_rates = {f: time_inference(matched, batch, inner_iters, repeats, SEED, fused=f)
                      for f in PATHS}
+    int8["matched_config"] = time_inference(matched, batch, inner_iters, repeats, SEED,
+                                            mode="int8")
     del matched
+    plus = model(plus_cfg((96, 8)))
+    int8["plus_96_8"] = time_inference(plus, batch, inner_iters, repeats, SEED, mode="int8")
+    int8["plus_96_8_bf16"] = time_inference(plus, batch, inner_iters, repeats, SEED)
+    del plus
     torch.cuda.empty_cache()
     return {
         "card": card_name(),
@@ -83,6 +100,8 @@ def bench(device, batch: int = 64, inner_iters: int = 10, repeats: int = 3) -> d
             **{f: {"value": v, "vs_ref_gpu_same_config": v / REFERENCE_VIDEOS_PER_S}
                for f, v in matched_rates.items()},
         },
+        "int8": {"metric": f"videos/s, int8 PTQ serving, B={batch}", "unit": "videos/s",
+                 **int8},
     }
 
 

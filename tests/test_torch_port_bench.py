@@ -33,6 +33,7 @@ from adafocus_torch import benchmark as tbench
 from adafocus_torch.models import gfv as tgfv
 from adafocus_tpu import benchmark as jbench
 from adafocus_tpu.models.gfv import GFV, GFVConfig
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import TINY, port_config
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -104,9 +105,9 @@ def test_time_inference_cpu(family):
         assert math.isfinite(rate) and rate > 0
     rates = tbench.inference_rates(model, batch=1, inner_iters=1, repeats=3, views=2)
     assert len(rates) == 3 and all(r > 0 for r in rates)
-    for mode in ("int8", "int8+heads"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tbench.time_inference(model, batch=1, mode=mode)
+    for mode in ("int8", "int8+heads"):   # the int8 serving path (item 14a)
+        rate = tbench.time_inference(model, batch=1, inner_iters=1, repeats=1, mode=mode)
+        assert math.isfinite(rate) and rate > 0
     with pytest.raises(ValueError, match="unknown mode"):
         tbench.time_inference(model, batch=1, mode="fp8")
 

@@ -120,9 +120,10 @@ def test_config_refuses_unported_keys(override, item):
     ("model.classifier=linear", 10), ("run.host_devices=4", 12), ("run.multihost=true", 12),
     ("run.platform=tpu", 12), ("run.quantize=int8", 14)])
 def test_cli_refuses_unported_paths(override, item, tmp_path):
-    """Several devices or hosts (item 12) and int8 serving (item 14) raise,
-    naming their ROADMAP item; the linear head (item 10, ported) trains a
-    stage-1 epoch through the CLI."""
+    """Several devices or hosts (item 12) raise, naming their ROADMAP item;
+    the linear head (item 10, ported) trains a stage-1 epoch through the
+    CLI, and int8 serving (item 14a, ported) evaluates: it calibrates,
+    prepares its int8 weights and reports top-1/5 and mAP."""
     args = SYNTH + [f"run.ckpt_dir={tmp_path}", override]
     if item == 10:
         from adafocus_torch.models import classifiers as tclassifiers
@@ -131,11 +132,13 @@ def test_cli_refuses_unported_paths(override, item, tmp_path):
         assert isinstance(out["state"].model.classifier, tclassifiers.LinearClassifier)
         assert out["epochs"][0]["steps"] == 2 and np.isfinite(out["best_acc"])
         return
+    if item == 14:
+        res = tevaluate.main(args)
+        assert set(res) == {"top1", "top5", "mAP"} and 0.0 <= res["mAP"] <= 1.0
+        assert "int8 PTQ: prepared" in (tmp_path / "evaluate.log").read_text()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        (tevaluate if "quantize" in override else ttrain).main(args)
-    for fn in (tevaluate.calibrate_from_loader, tevaluate.make_eval_step_q8):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn()
+        ttrain.main(args)
 
 
 def test_cli_needs_the_gpu_unless_asked(tmp_path):

@@ -512,3 +512,130 @@ def test_cuda_inverted_residual_tsm_split_matches_reference(dtype, size, c, expa
 def test_cuda_bottleneck_tsm_split_matches_reference(dtype, size, cin, features, stride,
                                                      downsample):
     _check_bottleneck(dtype, cin, features, stride, downsample, size, False, 4)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: the two int8 kernels (csrc/int8_conv.cu) against their plain
+# versions, and the int8 forward's launches
+# ---------------------------------------------------------------------------
+
+def _int8_unit(cout, cin, k, gen, depthwise=False):
+    from adafocus_torch.ops import quant as tq
+
+    w = torch.randn((cout, 1 if depthwise else cin, k, k) if k else (cout, cin), generator=gen)
+    kq, ws = tq.quantize_weight(w)
+    unit = tq.QConv(kq, ws, torch.randn(cout, generator=gen), torch.tensor(0.031))
+    return tq.prepare_qconv(tq.QConv(*(t.cuda() for t in unit[:4])), depthwise=depthwise)
+
+
+def _check_int8(run, acc, plain):
+    """Accumulators equal; float32 outputs equal but for a double rounding
+    of the plain version's float64-emulated FMA (1 ulp); bf16 the float32
+    output rounded."""
+    got_acc = run(torch.int32)
+    torch.cuda.synchronize()
+    assert torch.equal(got_acc.double(), acc)
+    got, want = run(torch.float32), plain(torch.float32)
+    diff = got != want
+    if diff.any():
+        ulps = (got[diff].view(torch.int32).long() - want[diff].view(torch.int32).long()).abs()
+        assert ulps.max().item() <= 1
+    assert torch.equal(run(torch.bfloat16), got.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,stride,act", [
+    (2, 14, 32, 48, 1, 1, "relu6"), (2, 13, 64, 64, 3, 1, "relu"), (3, 9, 128, 72, 3, 2, None),
+    (2, 28, 24, 144, 1, 1, "relu6"), (2, 12, 256, 512, 1, 2, None), (1, 5, 40, 1000, 3, 1, None),
+    (2, 7, 16, 8, 3, 2, "relu")],
+    ids=["1x1", "3x3s1", "3x3s2_odd", "cin24", "1x1s2", "cin40_wide", "cin16_narrow"])
+def test_cuda_int8_conv_matches_reference(n, h, cin, cout, k, stride, act):
+    """The GEMM kernel: both load paths (16-byte rows, Cin % 16 == 0, and
+    the byte gather, Cin = 24 and 40), depth tails, widths that are not a
+    multiple of the tile, odd maps."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(31)
+    unit = _int8_unit(cout, cin, k, gen)
+    x = torch.randint(-127, 128, (n, h, h, cin), generator=gen, dtype=torch.int8).cuda()
+    acc = tq.conv_acc_reference(x, unit.kernel_q, stride)
+    before = tq.int8_conv.launches
+    _check_int8(lambda dt: tq.int8_conv(x, unit, stride, 1, act, dt), acc,
+                lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, act, dt))
+    assert tq.int8_conv.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1, 3328, 3072), (1, 1024, 49), (64, 1024, 3072),
+                                   (17, 1568, 1024), (5, 24, 1)],
+                         ids=["gru_x_b1", "actor_b1", "gru_b64", "fc_m17", "k24_n1"])
+def test_cuda_int8_dense_matches_reference(m, k, n):
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(32)
+    unit = _int8_unit(n, k, 0, gen)
+    x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    acc = x.double() @ unit.kernel_q.double().t()
+    _check_int8(lambda dt: tq.int8_dense(x, unit, None, dt), acc,
+                lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, None, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,stride", [(2, 56, 144, 2), (2, 14, 576, 1), (3, 7, 960, 1),
+                                          (2, 9, 24, 2), (1, 5, 40, 1)],
+                         ids=["56s2", "14s1", "7s1", "c24_odd_s2", "c40"])
+def test_cuda_int8_dwconv_matches_reference(n, h, c, stride):
+    """The depthwise kernel: 16 channels a thread (C % 16 == 0) and one
+    channel a thread (C = 24, 40), odd maps at stride 2."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(33)
+    unit = _int8_unit(c, c, 3, gen, depthwise=True)
+    x = torch.randint(-127, 128, (n, h, h, c), generator=gen, dtype=torch.int8).cuda()
+    acc = tq.conv_acc_reference(x, unit.kernel_q, stride, groups=c)
+    before = tq.int8_dwconv.launches
+    _check_int8(lambda dt: tq.int8_conv(x, unit, stride, c, "relu6", dt), acc,
+                lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, "relu6", dt))
+    assert tq.int8_dwconv.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [False, True], ids=["int8", "int8+heads"])
+def test_cuda_q8_forward_launches(heads):
+    """The tiny configuration's int8 forward on the card: one patch launch,
+    every backbone unit an int8 launch (16 expand, 17 project and the head
+    conv of the glancer, 52 focuser convs; 17 depthwise), no fused block;
+    logits finite and close to the CPU's (the same int8 arithmetic; the
+    stems' float convolutions round differently, which may move a code)."""
+    from adafocus_torch.models import quant_inference as tqi
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    cfg = tgfv.flagship(tiny=True)
+    gen = torch.Generator().manual_seed(34)
+    frames = torch.randn((2, cfg.num_frames, cfg.image_size, cfg.image_size, 3), generator=gen)
+    small = torch.randn((2, cfg.num_frames, cfg.glance_size, cfg.glance_size, 3), generator=gen)
+    patches = torch.randn((4, cfg.patch_size, cfg.patch_size, 3), generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = tgfv.GFV(cfg, device=dev)
+        scales = tqi.calibrate_gfv(model, [{"frames_small": small, "patches": patches}],
+                                   heads=heads)
+        qw = tqi.prepare_q8(model, scales)
+        counts = (tpatch.extract_patches, tq.int8_conv, tq.int8_dwconv,
+                  tfb.fused_inverted_residual, tfb.fused_bottleneck)
+        for fn in counts:
+            fn.launches = 0
+        out[dev] = tqi.inference_q8(model, scales, tq.quantize_frames(frames.to(dev)),
+                                    tq.quantize_frames(small.to(dev)), device=dev, qw=qw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            head_launches = 2 * cfg.num_frames + 7 if heads else 0
+            assert [fn.launches for fn in counts] == [1, 86 + head_launches, 17, 0, 0]
+    got, want = out["cuda"].cpu(), out["cpu"]
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
+    assert cos.item() > 0.99

@@ -12,7 +12,8 @@ evaluate CLI on a carried checkpoint.
   them, the ST ``selector`` in stage 2 and ``selector_ac`` in stage 3
   among them.
 - The policy overrides (``run.eval_policy``) exit for a frame-budget model,
-  as the JAX package's do; ``run.quantize`` stays ROADMAP item 14.
+  as the JAX package's do; ``run.quantize=int8`` evaluates the int8
+  forward (``inference_q8_plus``).
 - A JAX checkpoint of a frame-budget model (weights from a seeded
   generator, ``tests/torch_port_common.abstract_variables``) crosses to a
   port checkpoint through the weight bridge; both evaluate CLIs then give
@@ -112,8 +113,9 @@ def test_port_cli_plus_trains_every_stage_and_evaluates(variant, ckpt_root):
     with pytest.raises(SystemExit, match="AdaFocus"):
         tevaluate.main(base + [f"run.resume={prev}", f"run.ckpt_dir={ckpt_root / 'ev'}",
                                "run.eval_policy=random"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tevaluate.main(base + [f"run.ckpt_dir={ckpt_root / 'ev'}", "run.quantize=int8"])
+    res = tevaluate.main(base + [f"run.resume={prev}", f"run.ckpt_dir={ckpt_root / 'ev8'}",
+                                 "run.quantize=int8"])
+    assert set(res) == {"top1", "top5", "mAP"} and 0.0 <= res["mAP"] <= 1.0
 
 
 @pytest.mark.parametrize("variant", ["st", "rl"])
