@@ -37,15 +37,16 @@ def action_grid(action_dim: int, device=None) -> torch.Tensor:
     Bit-identical to the JAX package's ``jnp.linspace`` grid: ``iota * f32(1 /
     (k - 1))`` with the last point set to 1.0. ``torch.linspace`` differs from
     it by one ulp at some points, enough to move ``floor(a * span)`` by one
-    pixel (K=49, span 96: 63 instead of 64).
+    pixel (K=49, span 96: 63 instead of 64). Built on ``device`` from no
+    host tensor (a float32 tensor times a Python scalar multiplies in
+    float32), so an exported program holds no CPU constant for it.
     """
     k = math.isqrt(action_dim)
     if k * k != action_dim:
         raise ValueError(f"action_dim {action_dim} must be a perfect square")
     line = torch.arange(k, dtype=torch.float32, device=device)
     if k > 1:
-        line = line * torch.tensor(1.0 / (k - 1), dtype=torch.float32, device=device)
-        line[-1] = 1.0
+        line = torch.cat([line[:-1] * (1.0 / (k - 1)), line.new_ones(1)])
     yy, xx = torch.meshgrid(line, line, indexing="ij")
     return torch.stack([yy.reshape(-1), xx.reshape(-1)], dim=-1)
 

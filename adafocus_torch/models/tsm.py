@@ -26,9 +26,9 @@ def temporal_shift(x: torch.Tensor, n_frames: int, shift_div: int = 8) -> torch.
     xt = x.reshape(bt // n_frames, n_frames, h, w, c)
     out = torch.empty(xt.shape, dtype=x.dtype, device=x.device)
     out[:, :-1, ..., :fold] = xt[:, 1:, ..., :fold]          # out[t] = in[t + 1]
-    out[:, -1, ..., :fold] = 0
+    out[:, -1, ..., :fold].zero_()   # (a stored Python 0 would be a CPU constant when exported)
     out[:, 1:, ..., fold:2 * fold] = xt[:, :-1, ..., fold:2 * fold]   # out[t] = in[t - 1]
-    out[:, 0, ..., fold:2 * fold] = 0
+    out[:, 0, ..., fold:2 * fold].zero_()
     out[..., 2 * fold:] = xt[..., 2 * fold:]
     return out.reshape(bt, h, w, c)
 

@@ -12,10 +12,14 @@ not carried over: the CUDA kernel takes any H, W, P and C.
 for a CUDA tensor and runs the plain version for a CPU tensor.
 ``extract_patches_at`` does the same from [0, 1] actions, with
 ``patch_offsets`` computed inside the kernel. The kernel copies 16-byte
-words over a grid of row bands, which ``plan_patch_extract`` sizes.
+words over a grid of row bands, which ``plan_patch_extract`` sizes. Both
+reach it through ``torch.library`` custom ops
+(``adafocus_torch::extract_patches``, ``adafocus_torch::extract_patches_at``),
+so that ``torch.export`` traces the serving forward through them and a
+reloaded artifact launches the kernel (``serving.py``).
 
 Both are differentiable with respect to the frames when a gradient is asked
-for (``_ExtractPatches``). The backward is the JAX package's VJP
+for (each op's registered autograd). The backward is the JAX package's VJP
 ``_extract_bwd``: each patch's cotangent goes into a zero frame at its
 window. That VJP is an XLA scatter, not a Pallas kernel, so here it is
 plain PyTorch (advanced indexing into ``zeros``) on every device; it is no
@@ -168,7 +172,9 @@ _launcher = None
 def _launch(frames: torch.Tensor, patch_size: int, offsets: Optional[torch.Tensor] = None,
             actions: Optional[torch.Tensor] = None, span: int = 0) -> torch.Tensor:
     """One launch of the kernel from ``offsets`` ((N, 2) int32) or from
-    ``actions`` ((B, T, 2) float32, any strides, with ``span`` = S - P)."""
+    ``actions`` ((B, T, 2) float32, any strides, with ``span`` = S - P).
+    Every pointer, the SM count and the stream are read here, inside the
+    custom op's CUDA implementation, never while a trace runs."""
     global _launcher
     if _launcher is None:
         _launcher = _kernels.load("patch_extract").patch_extract
@@ -195,48 +201,71 @@ def _launch(frames: torch.Tensor, patch_size: int, offsets: Optional[torch.Tenso
     return out
 
 
-def _extract(frames: torch.Tensor, offsets: Optional[torch.Tensor],
-             actions: Optional[torch.Tensor], image_size: int, patch_size: int
-             ) -> torch.Tensor:
-    """(N, H, W, C) frames -> (N, P, P, C) patches at ``offsets`` (N, 2), or
-    at ``patch_offsets(actions)`` for (B, T, 2) actions with B*T = N: the
-    kernel on a CUDA tensor (one launch), the plain version on the CPU."""
-    if frames.device.type == "cpu":
-        if offsets is None:
-            offsets = patch_offsets(actions.reshape(-1, 2), image_size, patch_size)
-        return extract_patches_reference(frames, offsets, patch_size)
-    if offsets is not None:
-        return _launch(frames, patch_size, offsets=offsets)
+# The kernel as two ``torch.library`` custom ops, from explicit offsets and
+# from actions, so that ``torch.export`` traces them (a fake tensor has no
+# ``data_ptr``) and a reloaded artifact launches the kernel. Each op has the
+# kernel as its CUDA implementation, the plain version as its CPU one, a
+# fake implementation (shapes only) and the scatter VJP as its autograd.
+# An op is registered once, when this module is first imported.
+
+
+@torch.library.custom_op("adafocus_torch::extract_patches", mutates_args=(),
+                         device_types="cpu")
+def _patches_op(frames: torch.Tensor, offsets: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(N, H, W, C) frames at (N, 2) integer offsets -> (N, P, P, C)."""
+    return extract_patches_reference(frames, offsets, patch_size)
+
+
+@_patches_op.register_kernel("cuda")
+def _patches_cuda(frames, offsets, patch_size):
+    return _launch(frames, patch_size, offsets=offsets)
+
+
+@torch.library.custom_op("adafocus_torch::extract_patches_at", mutates_args=(),
+                         device_types="cpu")
+def _patches_at_op(frames: torch.Tensor, actions: torch.Tensor, image_size: int,
+                   patch_size: int) -> torch.Tensor:
+    """(N, H, W, C) frames at ``patch_offsets`` of (B, T, 2) actions, B*T =
+    N -> (N, P, P, C)."""
+    offsets = patch_offsets(actions.reshape(-1, 2), image_size, patch_size)
+    return extract_patches_reference(frames, offsets, patch_size)
+
+
+@_patches_at_op.register_kernel("cuda")
+def _patches_at_cuda(frames, actions, image_size, patch_size):
     return _launch(frames, patch_size, actions=actions.to(torch.float32),
                    span=image_size - patch_size)
 
 
-class _ExtractPatches(torch.autograd.Function):
-    """Extraction under autograd. Saves the offsets (or the actions they
-    come from) and the frames' shape and dtype, never the frames: the
-    frames are an input, so keeping them would only hold memory."""
-
-    @staticmethod
-    def forward(ctx, frames, offsets, actions, image_size, patch_size):
-        ctx.save_for_backward(offsets if actions is None else actions)
-        ctx.from_actions = actions is not None
-        ctx.sizes = (image_size, patch_size)
-        ctx.frames = (frames.shape, frames.dtype)
-        return _extract(frames, offsets, actions, image_size, patch_size)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (saved,) = ctx.saved_tensors
-        image_size, patch_size = ctx.sizes
-        offsets = (patch_offsets(saved.reshape(-1, 2), image_size, patch_size)
-                   if ctx.from_actions else saved)
-        return scatter_patches(grad, offsets, *ctx.frames), None, None, None, None
+@_patches_op.register_fake
+def _patches_fake(frames, offsets, patch_size):
+    return frames.new_empty((frames.shape[0], patch_size, patch_size, frames.shape[3]))
 
 
-def _differentiable(frames, offsets, actions, image_size, patch_size):
-    if torch.is_grad_enabled() and frames.requires_grad:
-        return _ExtractPatches.apply(frames, offsets, actions, image_size, patch_size)
-    return _extract(frames, offsets, actions, image_size, patch_size)
+@_patches_at_op.register_fake
+def _patches_at_fake(frames, actions, image_size, patch_size):
+    return _patches_fake(frames, None, patch_size)
+
+
+def _setup_context(ctx, inputs, output):
+    """Saves the offsets (or the actions they come from) and the frames'
+    shape and dtype, never the frames: the frames are an input, so keeping
+    them would only hold memory."""
+    frames, where = inputs[:2]
+    ctx.save_for_backward(where)
+    ctx.sizes = tuple(inputs[2:])   # (P,) from offsets, (S, P) from actions
+    ctx.frames = (frames.shape, frames.dtype)
+
+
+def _backward(ctx, grad):
+    (where,) = ctx.saved_tensors
+    if len(ctx.sizes) == 2:
+        where = patch_offsets(where.reshape(-1, 2), *ctx.sizes)
+    return (scatter_patches(grad, where, *ctx.frames),) + (None,) * (1 + len(ctx.sizes))
+
+
+_patches_op.register_autograd(_backward, setup_context=_setup_context)
+_patches_at_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def extract_patches(frames: torch.Tensor, offsets: torch.Tensor,
@@ -251,7 +280,7 @@ def extract_patches(frames: torch.Tensor, offsets: torch.Tensor,
     if frames.device.type != "cpu":
         _check_frames(frames, patch_size)
         _check_offsets(frames, offsets)
-    return _differentiable(frames, offsets, None, 0, patch_size)
+    return _patches_op(frames, offsets, patch_size)
 
 
 # kernel launches since the last reset; tests and chip_smoke.py read it to
@@ -276,4 +305,4 @@ def extract_patches_at(frames: torch.Tensor, actions: torch.Tensor, image_size: 
         if tuple(actions.shape) != (b, t, 2) or actions.device != frames.device:
             raise ValueError(f"actions must be ({b}, {t}, 2) on the frames' device, got "
                              f"{tuple(actions.shape)} on {actions.device}")
-    return _differentiable(flat, None, actions, image_size, patch_size)
+    return _patches_at_op(flat, actions, image_size, patch_size)

@@ -20,10 +20,13 @@ The scheme is the JAX package's, symmetric PTQ:
 ``int8_conv`` (dense convs, 1x1 and 3x3, and through ``int8_dense`` the
 heads' matmuls) and ``int8_dwconv`` (depthwise 3x3) launch the hand-written
 Hopper kernels of ``csrc/int8_conv.cu`` on a CUDA tensor and run their
-plain versions on a CPU tensor. The JAX package runs these products as XLA
-ops (``lax.conv_general_dilated`` and ``jnp.dot`` with
-``preferred_element_type=int32``), not as Pallas kernels: PyTorch has no
-CUDA int8 convolution with per-channel scales, so the kernels are new work.
+plain versions on a CPU tensor, through the ``torch.library`` custom ops
+``adafocus_torch::int8_conv`` and ``adafocus_torch::int8_dwconv``, so that
+``torch.export`` traces the int8 serving forward (``serving.py``). The JAX
+package runs these products as XLA ops (``lax.conv_general_dilated`` and
+``jnp.dot`` with ``preferred_element_type=int32``), not as Pallas kernels:
+PyTorch has no CUDA int8 convolution with per-channel scales, so the
+kernels are new work.
 
 The plain versions: the product in float64 (exact, every partial sum is an
 integer below 2^53), the accumulator rounded to float32, and the epilogue
@@ -137,12 +140,21 @@ def pack_dw_weight(kernel_q: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_qconv(unit: QConv, depthwise: bool = False) -> QConv:
-    """``unit`` with its kernel-ready forms made once: the packed weight (on
-    a CUDA device) and the float32 rescale."""
-    packed = None
-    if unit.kernel_q.device.type == "cuda":
-        packed = (pack_dw_weight if depthwise else pack_conv_weight)(unit.kernel_q)
+    """``unit`` with its kernel-ready forms made once: the packed weight,
+    which the ops take on every device, and the float32 rescale."""
+    packed = (pack_dw_weight if depthwise else pack_conv_weight)(unit.kernel_q)
     return unit._replace(packed=packed, rescale=unit.x_scale * unit.w_scale)
+
+
+def unpack_conv_weight(packed: torch.Tensor, cout: int, kh: int, cin: int) -> torch.Tensor:
+    """``pack_conv_weight``'s inverse: (Cout_pad, K_pad) -> (Cout, Cin, kh,
+    kh) int8 (a view)."""
+    return packed[:cout, :kh * kh * cin].reshape(cout, kh, kh, cin).permute(0, 3, 1, 2)
+
+
+def unpack_dw_weight(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_dw_weight``'s inverse: (9, C) -> (C, 1, 3, 3) int8."""
+    return packed.t().reshape(packed.shape[1], 1, 3, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +200,102 @@ def _rescale(unit: QConv) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The kernels as torch.library custom ops.
+# ---------------------------------------------------------------------------
+#
+# Each op takes tensors and primitive arguments only: the int8 input, the
+# packed weight, the rescale, the bias, the geometry, the activation code
+# (``ACTS``) and the output dtype. Its CUDA implementation launches the
+# kernel, reading every pointer there, never while a trace runs; its CPU
+# implementation is the plain version on the weight unpacked from the same
+# packed form; its fake implementation gives the output's shape and dtype,
+# so that ``torch.export`` traces the int8 serving forward through them.
+
+
+def _on_device(dev: torch.device, launcher, *args) -> int:
+    """``launcher(*args, stream)`` on ``dev``'s current stream, switching
+    the current device only when it differs."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _conv_out(x_q: torch.Tensor, kh: int, stride: int) -> Tuple[int, int]:
+    """(Ho, Wo) of a kh x kh conv at padding (kh - 1) // 2."""
+    pad = (kh - 1) // 2
+    return tuple((d + 2 * pad - kh) // stride + 1 for d in x_q.shape[1:3])
+
+
+_ACT_OF_CODE = {code: name for name, code in ACTS.items()}
+
+
+@torch.library.custom_op("adafocus_torch::int8_conv", mutates_args=(), device_types="cpu")
+def _int8_conv_op(x_q: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
+                  bias: torch.Tensor, kh: int, stride: int, act: int,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """x_q (N, H, W, Cin) int8, packed (Cout_pad, K_pad) -> (N, Ho, Wo, Cout)."""
+    w = unpack_conv_weight(packed, bias.shape[0], kh, x_q.shape[-1])
+    return epilogue_reference(conv_acc_reference(x_q, w, stride), rescale, bias,
+                              _ACT_OF_CODE[act], out_dtype)
+
+
+@_int8_conv_op.register_kernel("cuda")
+def _int8_conv_cuda(x_q, packed, rescale, bias, kh, stride, act, out_dtype):
+    n, h, w, cin = x_q.shape
+    cout = bias.shape[0]
+    ho, wo = _conv_out(x_q, kh, stride)
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x_q.device)
+    vec = int(cin % 16 == 0 and x_q.data_ptr() % 16 == 0)
+    err = _on_device(x_q.device, _kernels.load("int8_conv").int8_conv, x_q.data_ptr(),
+                     packed.data_ptr(), rescale.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), n * ho * wo, h, w, cin, ho, wo, cout, kh * kh * cin,
+                     packed.shape[1], packed.shape[0], kh, stride, (kh - 1) // 2, act, vec,
+                     _OUT_KINDS[out_dtype])
+    if err != 0:
+        raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")
+    int8_conv.launches += 1
+    return out
+
+
+@_int8_conv_op.register_fake
+def _int8_conv_fake(x_q, packed, rescale, bias, kh, stride, act, out_dtype):
+    return x_q.new_empty((x_q.shape[0],) + _conv_out(x_q, kh, stride) + (bias.shape[0],),
+                         dtype=out_dtype)
+
+
+@torch.library.custom_op("adafocus_torch::int8_dwconv", mutates_args=(), device_types="cpu")
+def _int8_dwconv_op(x_q: torch.Tensor, packed: torch.Tensor, rescale: torch.Tensor,
+                    bias: torch.Tensor, stride: int, act: int,
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """x_q (N, H, W, C) int8, packed (9, C) -> (N, Ho, Wo, C)."""
+    acc = conv_acc_reference(x_q, unpack_dw_weight(packed), stride, groups=x_q.shape[-1])
+    return epilogue_reference(acc, rescale, bias, _ACT_OF_CODE[act], out_dtype)
+
+
+@_int8_dwconv_op.register_kernel("cuda")
+def _int8_dwconv_cuda(x_q, packed, rescale, bias, stride, act, out_dtype):
+    n, h, w, c = x_q.shape
+    ho, wo = _conv_out(x_q, 3, stride)
+    out = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x_q.device)
+    vec = int(c % 16 == 0 and x_q.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0)
+    err = _on_device(x_q.device, _kernels.load("int8_conv").int8_dwconv, x_q.data_ptr(),
+                     packed.data_ptr(), rescale.data_ptr(), bias.data_ptr(),
+                     out.data_ptr(), n, h, w, c, ho, wo, stride, act, vec,
+                     _OUT_KINDS[out_dtype])
+    if err != 0:
+        raise RuntimeError(f"int8_dwconv launch failed: CUDA error {err}")
+    int8_dwconv.launches += 1
+    return out
+
+
+@_int8_dwconv_op.register_fake
+def _int8_dwconv_fake(x_q, packed, rescale, bias, stride, act, out_dtype):
+    return x_q.new_empty((x_q.shape[0],) + _conv_out(x_q, 3, stride) + (x_q.shape[3],),
+                         dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
 # The kernels' wrappers.
 # ---------------------------------------------------------------------------
 
@@ -206,15 +314,6 @@ def _check(x_q: torch.Tensor, unit: QConv, out_dtype) -> None:
             raise ValueError(f"{name} must be float32 on {x_q.device}")
 
 
-def _on_device(dev: torch.device, launcher, *args) -> int:
-    """``launcher(*args, stream)`` on ``dev``'s current stream, switching
-    the current device only when it differs."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
-    with torch.cuda.device(dev):
-        return launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
-
-
 def int8_conv(x_q: torch.Tensor, unit: QConv, strides: int = 1, groups: int = 1,
               act: Optional[str] = None, out_dtype: torch.dtype = torch.float32
               ) -> torch.Tensor:
@@ -229,41 +328,29 @@ def int8_conv(x_q: torch.Tensor, unit: QConv, strides: int = 1, groups: int = 1,
         if groups != x_q.shape[-1] or unit.kernel_q.shape[:2] != (groups, 1):
             raise ValueError(f"groups={groups}: only a depthwise conv is supported")
         return int8_dwconv(x_q, unit, strides, act, out_dtype)
-    if x_q.device.type == "cpu":
-        acc = conv_acc_reference(x_q, unit.kernel_q, strides)
-        return epilogue_reference(acc, _rescale(unit), unit.bias, act, out_dtype)
-    return _launch_conv(x_q, unit, strides, act, out_dtype)
+    return _conv(x_q, unit, strides, act, out_dtype)
 
 
-def _launch_conv(x_q, unit: QConv, strides, act, out_dtype) -> torch.Tensor:
-    _check(x_q, unit, out_dtype)
-    n, h, w, cin = x_q.shape
+def _conv(x_q, unit: QConv, strides, act, out_dtype) -> torch.Tensor:
+    """The GEMM op on ``unit``'s packed weight (packed now when ``unit`` was
+    not prepared), after the kernel's checks on a CUDA tensor."""
     wq = unit.kernel_q
-    cout = wq.shape[0]
+    cin = x_q.shape[-1]
     kh = wq.shape[2] if wq.dim() == 4 else 1
-    if wq.dim() == 4 and (wq.shape[1] != cin or wq.shape[3] != kh or kh not in (1, 3)):
-        raise ValueError(f"weight {tuple(wq.shape)} does not fit input channels {cin}")
-    if wq.dim() == 2 and wq.shape[1] != cin:
-        raise ValueError(f"dense weight {tuple(wq.shape)} does not fit depth {cin}")
-    if strides not in (1, 2):
-        raise ValueError(f"stride {strides}: 1 or 2")
     packed = pack_conv_weight(wq) if unit.packed is None else unit.packed
-    k = kh * kh * cin
-    if packed.shape[0] < cout or packed.shape[1] < k or packed.shape[1] % TILE_K:
-        raise ValueError(f"packed weight {tuple(packed.shape)} does not fit ({cout}, {k})")
-    rescale = _rescale(unit).contiguous()
-    pad = (kh - 1) // 2
-    ho, wo = (h + 2 * pad - kh) // strides + 1, (w + 2 * pad - kh) // strides + 1
-    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=x_q.device)
-    vec = int(cin % 16 == 0 and x_q.data_ptr() % 16 == 0)
-    err = _on_device(x_q.device, _kernels.load("int8_conv").int8_conv, x_q.data_ptr(),
-                     packed.data_ptr(), rescale.data_ptr(), unit.bias.data_ptr(),
-                     out.data_ptr(), n * ho * wo, h, w, cin, ho, wo, cout, k, packed.shape[1],
-                     packed.shape[0], kh, strides, pad, ACTS[act], vec, _OUT_KINDS[out_dtype])
-    if err != 0:
-        raise RuntimeError(f"int8_conv launch failed: CUDA error {err}")
-    int8_conv.launches += 1
-    return out
+    if x_q.device.type != "cpu":
+        _check(x_q, unit, out_dtype)
+        if wq.dim() == 4 and (wq.shape[1] != cin or wq.shape[3] != kh or kh not in (1, 3)):
+            raise ValueError(f"weight {tuple(wq.shape)} does not fit input channels {cin}")
+        if wq.dim() == 2 and wq.shape[1] != cin:
+            raise ValueError(f"dense weight {tuple(wq.shape)} does not fit depth {cin}")
+        if strides not in (1, 2):
+            raise ValueError(f"stride {strides}: 1 or 2")
+        cout, k = wq.shape[0], kh * kh * cin
+        if packed.shape[0] < cout or packed.shape[1] < k or packed.shape[1] % TILE_K:
+            raise ValueError(f"packed weight {tuple(packed.shape)} does not fit ({cout}, {k})")
+    return _int8_conv_op(x_q, packed, _rescale(unit).contiguous(), unit.bias, kh, strides,
+                         ACTS[act], out_dtype)
 
 
 def int8_dwconv(x_q: torch.Tensor, unit: QConv, strides: int = 1, act: Optional[str] = None,
@@ -273,40 +360,24 @@ def int8_dwconv(x_q: torch.Tensor, unit: QConv, strides: int = 1, act: Optional[
     CUDA tensor one launch of the depthwise kernel; on a CPU tensor the plain
     version."""
     c = x_q.shape[-1]
-    if x_q.device.type == "cpu":
-        acc = conv_acc_reference(x_q, unit.kernel_q, strides, groups=c)
-        return epilogue_reference(acc, _rescale(unit), unit.bias, act, out_dtype)
-    _check(x_q, unit, out_dtype)
-    if tuple(unit.kernel_q.shape) != (c, 1, 3, 3) or strides not in (1, 2):
-        raise ValueError(f"depthwise weight {tuple(unit.kernel_q.shape)}, stride {strides}: "
-                         f"want ({c}, 1, 3, 3), 1 or 2")
+    if x_q.device.type != "cpu":
+        _check(x_q, unit, out_dtype)
+        if tuple(unit.kernel_q.shape) != (c, 1, 3, 3) or strides not in (1, 2):
+            raise ValueError(f"depthwise weight {tuple(unit.kernel_q.shape)}, stride "
+                             f"{strides}: want ({c}, 1, 3, 3), 1 or 2")
     packed = pack_dw_weight(unit.kernel_q) if unit.packed is None else unit.packed
-    rescale = _rescale(unit).contiguous()
-    n, h, w, _ = x_q.shape
-    ho, wo = (h - 1) // strides + 1, (w - 1) // strides + 1
-    out = torch.empty((n, ho, wo, c), dtype=out_dtype, device=x_q.device)
-    vec = int(c % 16 == 0 and x_q.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0)
-    err = _on_device(x_q.device, _kernels.load("int8_conv").int8_dwconv, x_q.data_ptr(),
-                     packed.data_ptr(), rescale.data_ptr(), unit.bias.data_ptr(),
-                     out.data_ptr(), n, h, w, c, ho, wo, strides, ACTS[act], vec,
-                     _OUT_KINDS[out_dtype])
-    if err != 0:
-        raise RuntimeError(f"int8_dwconv launch failed: CUDA error {err}")
-    int8_dwconv.launches += 1
-    return out
+    return _int8_dwconv_op(x_q, packed, _rescale(unit).contiguous(), unit.bias, strides,
+                           ACTS[act], out_dtype)
 
 
 def int8_dense(x_q: torch.Tensor, unit: QConv, act: Optional[str] = None,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int8 (M, Cin) x (Cout, Cin)^T -> (M, Cout), ``acc * x_scale * w_scale
-    + bias`` (JAX's ``int8_dense``): the GEMM kernel as a 1x1 conv over (M,
-    1, 1, Cin) on a CUDA tensor, any M (a batch-1 GRU step has M = 1); the
-    plain version on a CPU tensor."""
+    + bias`` (JAX's ``int8_dense``): the GEMM op as a 1x1 conv over (M, 1, 1,
+    Cin), any M (a batch-1 GRU step has M = 1): the kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
     m, k = x_q.shape
-    if x_q.device.type == "cpu":
-        acc = x_q.double() @ unit.kernel_q.double().t()
-        return epilogue_reference(acc, _rescale(unit), unit.bias, act, out_dtype)
-    return _launch_conv(x_q.reshape(m, 1, 1, k), unit, 1, act, out_dtype).reshape(m, -1)
+    return _conv(x_q.reshape(m, 1, 1, k), unit, 1, act, out_dtype).reshape(m, -1)
 
 
 # kernel launches since the last reset; tests and chip_smoke.py read them to

@@ -173,12 +173,25 @@ Phases, each raising on failure:
      (and ``run.quantize_heads=true``) on phase 9's synthetic clips from
      the device cache, its launches counted and no frame byte from the
      host.
+ 13. export (``adafocus_torch.serving``), this slice's main path: the
+     flagship, the matched configuration and ``plus_cfg((96, 8))`` in bf16
+     and the flagship in int8 (phase 12's scales), each exported with
+     ``torch.export`` at B=64 (export s), saved (save s, MB), its eager
+     logits and videos/s taken; then one fresh process that imports
+     ``adafocus_torch.serving`` (and the ops modules its loader imports)
+     reloads each (load s), holds every state tensor on the card, runs one
+     forward with the launch counts set to 0 just before (exactly 1 patch
+     launch; int8 also 86 ``int8_conv`` and 17 ``int8_dwconv``; no fused
+     block) and times it (3 runs of 10 forwards), and has imported no
+     ``adafocus_torch.models`` module and no JAX; each artifact's logits
+     against the eager ones (max|d| / max|eager| <= 1e-2). cuDNN's
+     autotuner and TF32 are off in both processes.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
 configuration's results, the bench, the CLI's results, phase 10's and
-phase 11's and phase 12's results and the kernel table (each kernel's launches on every
+phase 11's, phase 12's and phase 13's results and the kernel table (each kernel's launches on every
 path, its times at the flagship's and the matched configuration's shapes; the int8 kernels'
 at phase 12's unit shapes) as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -3236,11 +3249,13 @@ def q8_forward_checks(device, card: str) -> dict:
     return out, models
 
 
-def q8_throughput(models: dict, device, card: str) -> dict:
+def q8_throughput(models: dict, device, card: str) -> tuple:
     """Phase 12's timing at B=Q8_B: videos/s of 3 runs of 10 forwards in
     int8 beside bf16 in the same call, each family (the flagship also in
     int8+heads), the int8 flagship's phase split by CUDA events, its
-    batch-1 latency in int8 and bf16, peak memory of each int8 run."""
+    batch-1 latency in int8 and bf16, peak memory of each int8 run.
+    Returns (the results, the flagship's scales of the phase split, which
+    phase 13 exports with)."""
     import torch
 
     from adafocus_torch.benchmark import inference_rates
@@ -3296,7 +3311,7 @@ def q8_throughput(models: dict, device, card: str) -> dict:
                     phases[name] += ev[k].elapsed_time(ev[k + 1]) / n_timed
     out["flagship"]["int8_phase_ms"] = phases
     print(f"int8 flagship B={Q8_B} phase ms {json.dumps(phases)} ({card})", flush=True)
-    return out
+    return out, scales
 
 
 def q8_cli(device, card: str) -> dict:
@@ -3361,14 +3376,249 @@ def q8_phase(device, card: str) -> dict:
     start = time.perf_counter()
     rows, shapes = check_int8_kernels(device)
     checks, models = q8_forward_checks(device, card)
-    timing = q8_throughput(models, device, card)
+    timing, scales = q8_throughput(models, device, card)
     del models
     torch.cuda.empty_cache()
     cli = q8_cli(device, card)
     for row in rows:
         row["launches"] = checks["flagship"]["int8"]["launches"][row["name"]]
     return {"kernel_rows": rows, "shapes": shapes, "checks": checks, "timing": timing,
-            "cli": cli, "seconds": time.perf_counter() - start}
+            "cli": cli, "flagship_scales": scales, "seconds": time.perf_counter() - start}
+
+
+# ---------------------------------------------------------------------------
+# phase 13, export (adafocus_torch.serving, this slice's main path): the serving
+# forward of each family in bf16 and the flagship's in int8, exported with
+# torch.export at B=64, saved, and reloaded in a fresh process that imports
+# adafocus_torch.serving (and the ops modules its loader imports), nothing of
+# the model code and no JAX. The reloaded program launches the hand-written
+# kernels through their custom ops: exactly EXPORT_LAUNCHES a forward. Its
+# logits against the eager forward's on the same inputs: the same ATen ops
+# run, so equal is the prediction and EXPORT_REL_TOL the limit.
+# ---------------------------------------------------------------------------
+
+EXPORT_B = 64                # the serving batch of phases 5, 8, 11 and 12
+EXPORT_REL_TOL = 1e-2        # reloaded vs eager logits, max|d| / max|eager|
+EXPORT_RUNS = (3, 10)        # timed runs of forwards each, as benchmark.time_inference
+_NO_FUSED = {"fused_inverted_residual": 0, "fused_bottleneck": 0}
+EXPORT_LAUNCHES = {"bf16": {"extract_patches": 1, "int8_conv": 0, "int8_dwconv": 0, **_NO_FUSED},
+                   "int8": {"extract_patches": 1, "int8_conv": 86, "int8_dwconv": 17,
+                            **_NO_FUSED}}
+EXPORT_FORBIDDEN = ("adafocus_torch.models", "jax", "jaxlib", "flax", "adafocus_tpu")
+# the fresh process: load each artifact through adafocus_torch.serving alone,
+# in serve_reloaded (this file imports only the standard library at its top)
+_RELOAD = (
+    "import json, sys, time\n"
+    "t0 = time.perf_counter()\n"
+    "import torch\n"
+    "from adafocus_torch.serving import load_exported\n"
+    "import chip_smoke\n"
+    "start_s = time.perf_counter() - t0\n"
+    "print(json.dumps(chip_smoke.serve_reloaded(load_exported, start_s, sys.argv[1:])))\n"
+)
+
+
+def _export_backends() -> None:
+    """The library settings of both processes of phase 13: cuDNN's
+    autotuner off (the CLI's setting: it may pick another algorithm in each
+    process, and a bf16 rounding that moves a greedy argmax moves a patch)
+    and TF32 off, so that the eager and the reloaded forward run the same
+    kernels."""
+    import torch
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _videos_per_s(fn, frames, small) -> list:
+    """Videos/s of ``EXPORT_RUNS`` runs of forwards after ``WARMUP`` ones,
+    each run between two CUDA events (``benchmark.time_inference``'s
+    method; the host clock on the CPU)."""
+    import torch
+
+    warmup = 3   # adafocus_torch.benchmark.WARMUP
+    repeats, iters = EXPORT_RUNS
+    for _ in range(warmup):
+        fn(frames, small)
+    rates = []
+    for _ in range(repeats):
+        if frames.is_cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(iters):
+                fn(frames, small)
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(frames, small)
+            seconds = time.perf_counter() - t0
+        rates.append(frames.shape[0] * iters / seconds)
+    return rates
+
+
+def serve_reloaded(load, start_s: float, paths: list) -> dict:
+    """The fresh process's half of phase 13, for each (artifact, inputs,
+    logits) triple of ``paths``: the artifact loaded (``load``, timed); every
+    state tensor of the reloaded module on the inputs' device; one forward
+    with the launch counts set to 0 just before (its logits saved); the
+    reloaded module's videos/s. Then: no model code and no JAX imported."""
+    import torch
+
+    _export_backends()
+    rows = []
+    for artifact, inputs_path, out_path in zip(paths[::3], paths[1::3], paths[2::3]):
+        t0 = time.perf_counter()
+        fn = load(artifact)
+        load_s = time.perf_counter() - t0
+        inputs = torch.load(inputs_path)
+        frames, small = inputs["frames"], inputs["frames_small"]
+        state = dict(fn.state_dict())
+        state.update((k, v) for k, v in vars(fn).items() if isinstance(v, torch.Tensor))
+        off = sorted(k for k, v in state.items() if v.device != frames.device)
+        if off:
+            raise AssertionError(f"{artifact}: {len(off)} state tensors of the reloaded module "
+                                 f"are not on {frames.device}: {off[:5]}")
+        _q8_counts(reset=True)
+        logits = fn(frames, small)
+        if frames.is_cuda:
+            torch.cuda.synchronize()
+        launches = _q8_counts()
+        torch.save(logits.cpu(), out_path)
+        rows.append({"load_s": load_s, "launches": launches, "state_tensors": len(state),
+                     "videos_per_s": _videos_per_s(fn, frames, small)})
+        del fn, inputs, frames, small
+    bad = sorted(m for m in sys.modules
+                 if any(m == f or m.startswith(f + ".") for f in EXPORT_FORBIDDEN))
+    if bad:
+        raise AssertionError(f"loading the artifacts imported {bad}")
+    return {"start_s": start_s, "rows": rows}
+
+
+def _export_cases(q8_scales) -> list:
+    """(name, config, mode, scales): the flagship, the matched sth-sth
+    configuration and AdaFocus+ at plus_cfg((96, 8)) in bf16, the flagship
+    in int8 with phase 12's scales."""
+    from adafocus_torch.benchmark import plus_cfg, sthsth_cfg
+    from adafocus_torch.models.gfv import flagship
+
+    return [("flagship", flagship(), "bf16", None), ("matched", sthsth_cfg(144), "bf16", None),
+            ("plus", plus_cfg(PLUS_POINT), "bf16", None),
+            ("flagship", flagship(), "int8", q8_scales)]
+
+
+# the exporting process of phase 13: export_run on the card, the scales loaded
+_EXPORT = (
+    "import json, sys, torch\n"
+    "import chip_smoke\n"
+    "out = chip_smoke.export_run(torch.device(sys.argv[1]), sys.argv[2], torch.load(sys.argv[3]))\n"
+    "print(json.dumps(out))\n"
+)
+
+
+def export_phase(device, card: str, q8_scales) -> dict:
+    """Phase 13 as a whole, in a fresh process of its own (``export_run``):
+    in this one, cuDNN's autotuner picked algorithms for the same shapes in
+    earlier phases, and a library keeps those picks, so this process's eager
+    forward would run other kernels than the reloaded one's."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scales.pt")
+        torch.save(q8_scales, path)
+        proc = subprocess.run([sys.executable, "-c", _EXPORT, str(device), card, path],
+                              cwd=ROOT, capture_output=True, text=True, timeout=1000)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the exporting process failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def export_run(device, card: str, q8_scales) -> dict:
+    """Phase 13's exporting process: each case of ``_export_cases``
+    exported at B=EXPORT_B (export s), saved (save s, MB), its eager logits
+    and videos/s taken; then one fresh process reloads and serves every
+    artifact (its start-up s; each artifact's load s, launches, videos/s),
+    and each artifact's logits are held against the eager ones."""
+    import tempfile
+
+    import torch
+
+    from adafocus_torch.benchmark import inference_fn, make_data
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.models.quant_inference import family_q8, prepare_q8
+    from adafocus_torch.serving import export_inference, save_exported
+
+    start = time.perf_counter()
+    _export_backends()
+    out, paths = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, cfg, mode, scales) in enumerate(_export_cases(q8_scales)):
+            model = GFV(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+            data = make_data(cfg, EXPORT_B, device=device, seed=SEED + 140)
+            frames, small = data["frames"], data["frames_small"]
+            t0 = time.perf_counter()
+            ep = export_inference(model, EXPORT_B, mode=mode, scales=scales)
+            t1 = time.perf_counter()
+            path = os.path.join(tmp, f"{i}.pt2")
+            save_exported(ep, path)
+            t2 = time.perf_counter()
+            del ep
+            if mode == "int8":
+                qw = prepare_q8(model, scales)
+                forward = family_q8(cfg)
+
+                def eager(f, s, model=model, forward=forward, scales=scales, qw=qw):
+                    return forward(model, scales, f, s, device=device, qw=qw)
+            else:
+                eager = inference_fn(model)
+            want = eager(frames, small).float().cpu()
+            torch.save(data, os.path.join(tmp, f"{i}_in.pt"))
+            paths += [path, os.path.join(tmp, f"{i}_in.pt"), os.path.join(tmp, f"{i}_out.pt")]
+            out[f"{name} {mode}"] = {
+                "export_s": t1 - t0, "save_s": t2 - t1, "mb": os.path.getsize(path) / 1e6,
+                "eager_videos_per_s": _videos_per_s(eager, frames, small), "want": want}
+            del model, data, frames, small, eager
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _RELOAD, *paths], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"export: the fresh process failed (rc {proc.returncode}):\n"
+                                 f"{proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"export: one fresh process served {len(out)} artifacts in {process_s!r} s "
+              f"(start-up and imports {served['start_s']!r} s) ({card})", flush=True)
+        for i, ((key, row), rel_row) in enumerate(zip(out.items(), served["rows"])):
+            mode = key.split()[-1]
+            want = row.pop("want")
+            got = torch.load(paths[3 * i + 2]).float()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"export {key}: logits {tuple(got.shape)} not finite or "
+                                     f"not {tuple(want.shape)}")
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            row.update(rel_row, rel_err=rel)
+            print(f"export {key} B={EXPORT_B}: export {row['export_s']!r} s, save "
+                  f"{row['save_s']!r} s, {row['mb']!r} MB ({row['state_tensors']} state "
+                  f"tensors on the card); fresh-process load {row['load_s']!r} s; launches "
+                  f"{row['launches']}; reloaded vs eager logits max|d|/max|eager| {rel!r} "
+                  f"(limit {EXPORT_REL_TOL}); videos/s reloaded {row['videos_per_s']!r}, eager "
+                  f"{row['eager_videos_per_s']!r} ({card})", flush=True)
+            if row["launches"] != EXPORT_LAUNCHES[mode]:
+                raise AssertionError(f"export {key}: launches {row['launches']}, want "
+                                     f"{EXPORT_LAUNCHES[mode]}")
+            if not rel <= EXPORT_REL_TOL:
+                raise AssertionError(f"export {key}: reloaded vs eager {rel} > {EXPORT_REL_TOL}")
+    return {"artifacts": out, "process": {"seconds": process_s, "start_s": served["start_s"]},
+            "seconds": time.perf_counter() - start}
 
 
 def main() -> int:
@@ -3489,10 +3739,11 @@ def main() -> int:
     done("phase 11")
     q8 = q8_phase(device, card)
     done(f"phase 12 ({q8['seconds']:.1f} s)")
-    # each kernel's count from the run of this slice's main path, the
-    # AdaFocus+ CLI's stage 1 (the patch kernel; the plus path has no fused
-    # dispatch), and for the blocks the matched sth-sth forward's fused path;
-    # the counts of the other paths beside them
+    export = export_phase(device, card, q8.pop("flagship_scales"))
+    done(f"phase 13 ({export['seconds']:.1f} s)")
+    # each kernel's count from the run of this slice's main path (phase 13,
+    # below), and for the blocks the matched sth-sth forward's fused path; the
+    # counts of the other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
     sth_cli = sthsth["cli"]
     n_sth_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
@@ -3530,9 +3781,10 @@ def main() -> int:
                 for fam, modes in q8["checks"].items() for mode, row in modes.items()},
              **{f"CLI evaluate run.quantize=int8 ({mode}), {-(-CLI_VIDEOS // CLI_B)} "
                 f"calibration batches, the preparation and as many eval batches": v["launches"]
-                for mode, v in q8["cli"].items()}}
+                for mode, v in q8["cli"].items()},
+             **{f"export {key}, reloaded in a fresh process, 1 forward": row["launches"]
+                for key, row in export["artifacts"].items()}}
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
-    rows[0]["launches"] = plus["cli"]["stages"][1]["launches"]["extract_patches"]
     gp = plus["serving"]["gather_and_patch"]
     rows[0]["plus"] = {
         "ms": gp["patch_ms"], "plain_ms": gp["patch_plain_ms"], "bound_ms": gp["patch_bound_ms"],
@@ -3551,6 +3803,16 @@ def main() -> int:
         row["matched"] = {k: mrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "max_abs_err", "shape")}
     rows += q8["kernel_rows"]
+    # this slice's main path, the flagship's int8 artifact reloaded in a fresh
+    # process, launches the patch kernel and both int8 kernels through their
+    # custom ops; the fused blocks stay ctypes calls, off every export path
+    # (JAX exports the library path), with their counts from phase 8
+    ops = {"extract_patches": "adafocus_torch::extract_patches_at",
+           "int8_conv": "adafocus_torch::int8_conv", "int8_dwconv": "adafocus_torch::int8_dwconv"}
+    for row in rows:
+        row["custom_op"] = ops.get(row["name"])
+        if row["name"] in ops:
+            row["launches"] = export["artifacts"]["flagship int8"]["launches"][row["name"]]
     # a path's count of a kernel it was not counted for (the int8 kernels
     # before phase 12) is None
     for row in rows:
@@ -3567,6 +3829,7 @@ def main() -> int:
     print(json.dumps({"sthsth_train": sthsth}), flush=True)
     print(json.dumps({"plus": plus}), flush=True)
     print(json.dumps({"int8": {k: v for k, v in q8.items() if k != "kernel_rows"}}), flush=True)
+    print(json.dumps({"export": export}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

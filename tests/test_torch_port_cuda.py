@@ -30,6 +30,14 @@ host cache's; prefetching takes an unindexed CUDA device; the batch prep on the 
 downsample) matches the CPU's on the same uint8 batch and draws within
 max|d| / max|cpu| <= 1e-4, float32 with TF32 off.
 
+Export: the four custom ops (``adafocus_torch::extract_patches``,
+``extract_patches_at``, ``int8_conv``, ``int8_dwconv``) pass
+``torch.library.opcheck`` on CUDA tensors; a tiny artifact exported on the
+card, saved and reloaded holds every state tensor on the card, launches the
+patch kernel once a forward (int8: also 86 ``int8_conv`` and 17
+``int8_dwconv``, no fused block) and serves the eager forward's logits
+(max|d| / max|eager| <= 1e-5; the same ops run).
+
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
 whose rounding flips moves by one bf16 ulp). Their cases cover the bf16
@@ -639,3 +647,81 @@ def test_cuda_q8_forward_launches(heads):
     assert torch.isfinite(got).all()
     cos = torch.nn.functional.cosine_similarity(got.flatten(), want.flatten(), dim=0)
     assert cos.item() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# export: the custom ops on CUDA tensors, and a tiny artifact exported on the
+# card, reloaded and launching the kernels
+# ---------------------------------------------------------------------------
+
+def _opcheck_cases():
+    from adafocus_torch.ops import quant as tq
+
+    gen = torch.Generator().manual_seed(35)
+    frames = torch.randn((6, 20, 23, 3), generator=gen).cuda()
+    offsets = torch.tensor([[0, 0], [-3, 5], [13, 16], [20, 32], [5, -1], [2, 11]],
+                           dtype=torch.int32).cuda()
+    actions = torch.rand((2, 3, 2), generator=gen).cuda()
+    x = torch.randint(-127, 128, (2, 9, 9, 32), generator=gen, dtype=torch.int8).cuda()
+    w = tq.pack_conv_weight(torch.randint(-127, 128, (40, 32, 3, 3), generator=gen,
+                                          dtype=torch.int8).cuda())
+    dw = tq.pack_dw_weight(torch.randint(-127, 128, (32, 1, 3, 3), generator=gen,
+                                         dtype=torch.int8).cuda())
+    rescale = (torch.rand(40, generator=gen) * 1e-3).cuda()
+    bias = torch.randn(40, generator=gen).cuda()
+    return {
+        "extract_patches": (tpatch._patches_op, (frames.requires_grad_(), offsets, 7)),
+        "extract_patches_at": (tpatch._patches_at_op,
+                               (frames.detach().requires_grad_(), actions, 20, 7)),
+        "int8_conv": (tq._int8_conv_op, (x, w, rescale, bias, 3, 2, tq.ACTS["relu6"],
+                                         torch.bfloat16)),
+        "int8_dwconv": (tq._int8_dwconv_op, (x, dw, rescale[:32].contiguous(),
+                                             bias[:32].contiguous(), 1, tq.ACTS["relu"],
+                                             torch.float32)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["extract_patches", "extract_patches_at", "int8_conv",
+                                "int8_dwconv"])
+def test_cuda_custom_ops_opcheck(op):
+    _needs_gpu()
+    fn, args = _opcheck_cases()[op]
+    torch.library.opcheck(fn, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_cuda_export_reload_launches(mode, tmp_path):
+    from adafocus_torch import serving
+    from adafocus_torch.benchmark import inference_fn, make_data
+    from adafocus_torch.models import quant_inference as tqi
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    cfg = tgfv.flagship(tiny=True)
+    model = tgfv.GFV(cfg, device="cuda")
+    data = make_data(cfg, 2, device="cuda", seed=36)
+    frames, small = data["frames"], data["frames_small"]
+    scales = None
+    if mode == "int8":
+        scales = tqi.calibrate_gfv(model, [tqi.calibration_batch(model, frames, small)])
+    path = str(tmp_path / "model.pt2")
+    serving.save_exported(serving.export_inference(model, 2, mode, scales), path)
+    fn = serving.load_exported(path)
+    state = list(fn.state_dict().values()) + [v for v in vars(fn).values()
+                                              if isinstance(v, torch.Tensor)]
+    assert all(t.is_cuda for t in state)
+    counts = (tpatch.extract_patches, tq.int8_conv, tq.int8_dwconv,
+              tfb.fused_inverted_residual, tfb.fused_bottleneck)
+    for f in counts:
+        f.launches = 0
+    got = fn(frames, small)
+    torch.cuda.synchronize()
+    assert [f.launches for f in counts] == ([1, 86, 17, 0, 0] if mode == "int8"
+                                            else [1, 0, 0, 0, 0])
+    if mode == "int8":
+        want = tqi.inference_q8(model, scales, frames, small, qw=tqi.prepare_q8(model, scales))
+    else:
+        want = inference_fn(model)(frames, small)
+    assert _rel_err(got, want) <= 1e-5

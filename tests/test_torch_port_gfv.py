@@ -111,7 +111,8 @@ def test_port_imports_no_jax():
                 "adafocus_torch/utils/visualize.py", "adafocus_torch/train/stages_sthsth.py",
                 "adafocus_torch/models/gfv_plus.py", "adafocus_torch/train/stages_plus.py",
                 "adafocus_torch/ops/quant.py", "adafocus_torch/models/quant_inference.py",
-                "adafocus_torch/weights.py", "adafocus_torch/benchmark.py"):
+                "adafocus_torch/weights.py", "adafocus_torch/benchmark.py",
+                "adafocus_torch/serving.py", "adafocus_torch/cli/export.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

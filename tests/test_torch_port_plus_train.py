@@ -261,8 +261,13 @@ def _joint_draws(cfg, jmodel, variables, small, rng):
     idx = selector.apply({"params": params["selector_ac"]}, pooled, k, sel_key, "sample",
                          method=SelectorActorCritic.rollout)["idx"]
     fmaps_tb = jnp.swapaxes(gather_frames(fmap, idx), 0, 1)
-    spatial = _rollout_time_major(jppo.make_policy(cfg), {"params": params["policy"]},
-                                  fmaps_tb, spat_key, cfg)["store"]
+    policy_vars = {"params": params["policy"]}
+    if "policy" in variables["batch_stats"]:
+        # a BatchNorm encoder: the behavior rollout normalizes with the
+        # batch's statistics, as the JAX step gives it the policy's stats
+        policy_vars["batch_stats"] = variables["batch_stats"]["policy"]
+    spatial = _rollout_time_major(jppo.make_policy(cfg), policy_vars, fmaps_tb, spat_key,
+                                  cfg)["store"]
     return {"select": _t(idx).long(), "spatial": _t(spatial).long(),
             "base_idx": _t(jax.random.randint(base_f_key, (b, k), 0, t)).long(),
             "base_actions": _t(random_patch_actions(base_a_key, (b, k)))}
@@ -321,6 +326,89 @@ def test_joint_stage2_step_matches_jax(joint_setup, mode, monkeypatch):
     g = torch.cat([want_grad[k].flatten() for k in trained])
     resolved = g.abs() > 1e-6 * scale
     assert _rel(upd[resolved], want[resolved]) <= 1e-4
+    for key in before:
+        if key not in trained:
+            assert torch.equal(after[key], before[key]), f"{key} moved"
+
+
+@pytest.fixture(scope="module")
+def joint_bn_setup():
+    cfg = dataclasses.replace(TINY_PLUS, plus_rl=True, policy_bn=True)
+    with jax.enable_x64(True):
+        return (cfg,) + _setup(cfg, SEED + 10)
+
+
+@pytest.mark.parametrize("mode", ["random", "conf", "prev"])
+def test_joint_stage2_bn_encoder_step_matches_jax(joint_bn_setup, mode, monkeypatch):
+    """The joint stage 2 with a BatchNorm policy encoder
+    (``model.policy_bn=true``): the train-mode behavior rollout, whose
+    statistics update is discarded, and ``joint_loss``'s evaluate pass
+    under ``stats_frozen``. JAX's behavior rollout is given the policy's
+    ``batch_stats``, as its step gives them.
+
+    The weights, batch and key are ``test_joint_stage2_step_matches_jax``'s
+    with ``policy_bn=True``; the bars are the gaps measured on them in
+    float64 over the three rewards, not that test's: the BatchNorm's batch
+    statistics over B*K = 12 maps amplify the float32 rounding of the
+    logprobs, values and confidences that both packages compute in
+    float32. The mean reward and the confidence were within 2.3e-6
+    relative; the total loss, value loss and entropy within 1.3e-7
+    relative (two float32 ulps); ``ratio_mean`` exactly 1; each module's
+    gradient within 2.7e-6 as a whole; the Adam update within 2.1e-5 over
+    the elements whose gradient is resolved (as in that test). The policy
+    loss is a near-cancelling mean (about 2.6e-3 over terms of order 1), so
+    it is held by its absolute error, 1.3e-7 (5e-5 relative)."""
+    cfg, jmodel, variables, jbatch, tbatch = joint_bn_setup
+    jcfg = jppo.PPOConfig(reward_mode=mode)
+    with jax.enable_x64(True):
+        params = variables["params"]
+        learner = {"policy": params["policy"], "selector_ac": params["selector_ac"]}
+        state = TrainState(params=params, batch_stats=variables["batch_stats"],
+                           opt_state=None, step=jnp.zeros((), jnp.int32),
+                           ppo=jppo.ppo_init(learner, jcfg))
+        monkeypatch.setattr(jsplus, "make_optimizer", lambda c: optax.identity())
+        jstep = jsplus.make_plus_stage2_joint_step(jmodel, jcfg)
+        rng = jax.random.key(60)
+        new, m = jax.jit(jstep)(state, jbatch, rng)
+        grads = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b), new.ppo.params,
+                             learner)
+        tx = optax.adam(jcfg.lr, b1=jcfg.betas[0], b2=jcfg.betas[1])
+        adam, _ = tx.update(grads, tx.init(learner))
+        want_grad = state_dict_from_jax({"params": grads, "batch_stats": {}}, torch.float64)
+        want_upd = state_dict_from_jax({"params": jax.tree.map(np.asarray, adam),
+                                        "batch_stats": {}}, torch.float64)
+        draws = _joint_draws(cfg, jmodel, variables, jbatch["frames_small"], rng)
+    model = port_model64(cfg, variables)
+    assert model.policy.encoder.bn is not None
+    toptim.freeze_for_stage(model, 2)
+    ppo = tppo.ppo_init(tstages.joint_learner(model), tppo.PPOConfig(reward_mode=mode))
+    before = snapshot(model)
+    got = tsplus.make_plus_stage2_joint_step(model, ppo)(tbatch, None, draws)
+    after = snapshot(model)
+    assert got.keys() == m.keys()
+    for key in ("reward_mean", "confidence"):
+        np.testing.assert_allclose(float(got[key]), float(m[key]), rtol=2.3e-6, err_msg=key)
+    for key in ("ppo/loss", "ppo/value_loss", "ppo/entropy"):
+        np.testing.assert_allclose(float(got[key]), float(m[key]), rtol=1.3e-7, err_msg=key)
+    np.testing.assert_allclose(float(got["ppo/policy_loss"]), float(m["ppo/policy_loss"]),
+                               atol=1.3e-7, rtol=0)
+    assert float(got["ppo/ratio_mean"]) == 1.0
+    trained = dict(tstages.joint_learner(model).named_parameters())
+    assert trained.keys() == want_grad.keys()
+    mx = {}
+    for module in ("policy", "selector_ac"):
+        keys = [k for k in trained if k.startswith(module + ".")]
+        got_g = torch.cat([trained[k].grad.flatten() for k in keys])
+        want_g = torch.cat([want_grad[k].flatten() for k in keys])
+        mx[module] = want_g.abs().max()
+        assert _rel(got_g, want_g) <= 2.7e-6, module
+    upd = torch.cat([(after[k] - before[k]).flatten() for k in trained])
+    want = torch.cat([want_upd[k].flatten() for k in trained])
+    scale = torch.cat([torch.full((want_grad[k].numel(),), float(mx[k.split(".")[0]]))
+                       for k in trained])
+    g = torch.cat([want_grad[k].flatten() for k in trained])
+    resolved = g.abs() > 1e-6 * scale
+    assert _rel(upd[resolved], want[resolved]) <= 2.1e-5
     for key in before:
         if key not in trained:
             assert torch.equal(after[key], before[key]), f"{key} moved"
