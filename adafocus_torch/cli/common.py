@@ -42,6 +42,7 @@ from adafocus_torch.data.transforms import (
     num_eval_views,
     to_device,
 )
+from adafocus_torch.parallel.mesh import Replicas, init_replicas
 
 # the stream of the validation batches' generators (the JAX package folds
 # 0x7FFFFFFF into its root key for them)
@@ -50,19 +51,43 @@ EVAL_STREAM = 0x7FFFFFFF
 
 def select_device(run_cfg) -> torch.device:
     """``run.platform``: 'cpu' runs on the CPU; '' or 'cuda' on the GPU
-    (``default_device``, which raises when none is visible). Several devices
-    and several hosts are ROADMAP item 12."""
-    if run_cfg.host_devices or run_cfg.multihost or run_cfg.platform == "tpu":
+    (``default_device``, which raises when none is visible); 'tpu' raises.
+    ``run.host_devices=N`` asks for N local ranks, one GPU each
+    (cli/train.py), so it raises when fewer GPUs are visible."""
+    if run_cfg.platform == "tpu":
         raise NotImplementedError(
-            "multi-device and multi-host runs (run.host_devices, run.multihost) and "
-            "run.platform=tpu are not ported yet (ROADMAP item 12)")
+            "run.platform=tpu: the port runs on CUDA GPUs, or on the CPU with "
+            "run.platform=cpu (the JAX package adafocus_tpu runs on TPUs)")
     if run_cfg.platform == "cpu":
         return torch.device("cpu")
     if run_cfg.platform not in ("", "cuda"):
         raise ValueError(f"unknown run.platform {run_cfg.platform!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible; set run.platform=cpu to run on the CPU")
+    if run_cfg.host_devices > torch.cuda.device_count():
+        raise RuntimeError(f"run.host_devices={run_cfg.host_devices}: only "
+                           f"{torch.cuda.device_count()} GPU(s) visible")
     return default_device(None)
+
+
+def join_replicas(run_cfg) -> Replicas:
+    """``run.multihost``: joins the replica group as this process's rank,
+    from ``run.coordinator`` (``host:port`` or ``file://path``) with
+    ``run.num_processes`` and ``run.process_id``, or else from torchrun's
+    environment; on the GPU (NCCL) unless ``run.platform=cpu`` (gloo)."""
+    device_type = select_device(run_cfg).type
+    if not run_cfg.coordinator:
+        try:
+            return init_replicas(device_type=device_type)
+        except ValueError as e:
+            raise ValueError(f"run.multihost=true: {e} (run.coordinator, run.num_processes, "
+                             "run.process_id)") from None
+    if not 0 <= run_cfg.process_id < run_cfg.num_processes:
+        raise ValueError(f"run.multihost=true with run.coordinator needs run.num_processes >= 1 "
+                         f"and 0 <= run.process_id < it; got {run_cfg.num_processes} and "
+                         f"{run_cfg.process_id}")
+    return init_replicas(run_cfg.coordinator, run_cfg.num_processes, run_cfg.process_id,
+                         device_type)
 
 
 def set_all_seeds(seed: int) -> torch.Generator:
@@ -122,9 +147,12 @@ def synthetic_records(n: int, num_classes: int, frames: int = 64):
     ]
 
 
-def build_loader(cfg: ExperimentConfig, train: bool, device: torch.device):
+def build_loader(cfg: ExperimentConfig, train: bool, device: torch.device,
+                 shard: Optional[tuple] = None):
     """The train or validation loader; ``loader.cache=device`` holds the
-    frames on ``device``."""
+    frames on ``device``. ``shard`` (rank, world) reads that record shard,
+    unless ``loader.host_id`` / ``loader.num_hosts`` pin another (the JAX
+    package's rule for its processes)."""
     run = cfg.run
     loader_cfg = cfg.loader
     if train:
@@ -133,10 +161,14 @@ def build_loader(cfg: ExperimentConfig, train: bool, device: torch.device):
         mode = "test"  # dense/twice multi-clip sampling (test-time)
     else:
         mode = "val"
+    host_id, num_hosts = loader_cfg.host_id, loader_cfg.num_hosts
+    if shard is not None:
+        host_id = host_id or shard[0]
+        num_hosts = num_hosts if num_hosts > 1 else shard[1]
     loader_cfg = LoaderConfig(
         **{**loader_cfg.__dict__, "mode": mode,
            "multi_label": run.dataset in ("actnet", "fcvid"),
-           "drop_last": train})
+           "drop_last": train, "host_id": host_id, "num_hosts": num_hosts})
     if run.synthetic_data:
         # synthetic labels must live in the model's class space
         records = synthetic_records(run.synthetic_videos, cfg.model.num_classes)

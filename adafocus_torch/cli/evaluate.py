@@ -14,7 +14,9 @@ division's the mean of its frames' targets where the target is present).
 A frame-budget (AdaFocus+) model evaluates through ``inference_plus``; the
 policy overrides are not defined for it and exit, as the JAX package's do.
 The model keeps float32 parameters and computes in ``model.dtype``, as a
-training run's does. On the GPU unless ``run.platform=cpu``.
+training run's does. On the GPU unless ``run.platform=cpu``; in one
+process on one device, as the JAX package's evaluate (``run.host_devices``
+is accepted, ``run.multihost`` refused).
 ``run.quantize=int8`` evaluates the int8 serving forward of the model's
 family (models/quant_inference.py): it calibrates on
 ``run.quantize_batches`` validation batches (``calibrate_from_loader``),
@@ -194,6 +196,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise SystemExit("run.eval_policy overrides cannot combine with run.quantize")
     if cfg.run.quantize not in ("", "int8"):
         raise SystemExit(f"unknown run.quantize mode {cfg.run.quantize!r}")
+    if cfg.run.multihost:
+        raise ValueError("run.multihost: evaluate runs in one process on one device")
     device = select_device(cfg.run)
     log = Logger(os.path.join(cfg.run.ckpt_dir, "evaluate.log"))
     log(echo(cfg))

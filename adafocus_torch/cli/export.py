@@ -53,6 +53,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args = ap.parse_args(argv)
     cfg = load_config(args.config, args.overrides)
     check_family(cfg)
+    if cfg.run.multihost:
+        raise ValueError("run.multihost: export runs in one process on one device")
     device = select_device(cfg.run)
     log = Logger(os.path.join(cfg.run.ckpt_dir, "export.log"))
     log(echo(cfg))

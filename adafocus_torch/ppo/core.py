@@ -26,6 +26,10 @@ BatchNorm encoder carries its running statistics as the JAX package does:
 each epoch's evaluate pass runs it in train mode and advances them once
 (the behavior rollout, ``train.stages._rollout_time_major``, normalises
 with the same batch statistics and leaves the running ones).
+
+Data parallel (``replicas``, the JAX package's ``axis_name``): the returns
+are normalised with the global batch's moments and every epoch's gradients
+are averaged over the replicas (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch import nn
 
 from adafocus_torch.models.layers import training
 from adafocus_torch.models.policy import discrete_logprobs, gaussian_entropy, gaussian_logprob
+from adafocus_torch.parallel.mesh import Replicas, average_, average_grads_
 
 ADAM_EPS = 1e-8     # optax.adam's default
 
@@ -95,17 +100,27 @@ def compute_rewards(confidence: torch.Tensor, baseline: Optional[torch.Tensor],
     raise ValueError(f"unknown reward mode {mode}")
 
 
-def discounted_returns(rewards_tb: torch.Tensor, gamma: float) -> torch.Tensor:
+def discounted_returns(rewards_tb: torch.Tensor, gamma: float,
+                       replicas: Optional[Replicas] = None) -> torch.Tensor:
     """No-bootstrap discounted returns of time-major rewards (T, B),
     normalised over all T*B values: mean 0, divided by the population std
-    (``jnp.std``) plus 1e-5."""
+    (``jnp.std``) plus 1e-5. Over several ``replicas`` the moments are the
+    global batch's, as the JAX package's under ``axis_name``: the mean of
+    the replicas' means, then the square root of the mean of their mean
+    squared deviations from it (exact for equal shards)."""
     carry = torch.zeros_like(rewards_tb[0])
     returns = []
     for r in reversed(rewards_tb.unbind(0)):
         carry = r + gamma * carry
         returns.append(carry)
     returns = torch.stack(returns[::-1])
-    return (returns - returns.mean()) / (returns.std(correction=0) + 1e-5)
+    if replicas is None or replicas.world == 1:
+        return (returns - returns.mean()) / (returns.std(correction=0) + 1e-5)
+    mean = returns.mean()
+    average_([mean], replicas)
+    var = ((returns - mean) ** 2).mean()
+    average_([var], replicas)
+    return (returns - mean) / (var.sqrt() + 1e-5)
 
 
 def evaluate_episode(policy: nn.Module, fmaps_tb: torch.Tensor, actions_tb: torch.Tensor
@@ -156,21 +171,26 @@ def ppo_loss(policy: nn.Module, memory: Dict[str, torch.Tensor], cfg: PPOConfig
 
 def ppo_update(state: PPOState, memory: Dict[str, torch.Tensor],
                autocast: Callable[[], ContextManager] = contextlib.nullcontext,
-               loss_fn: Callable = ppo_loss) -> Dict[str, torch.Tensor]:
+               loss_fn: Callable = ppo_loss, replicas: Optional[Replicas] = None
+               ) -> Dict[str, torch.Tensor]:
     """``cfg.k_epochs`` epochs of clipped PPO on one episode, each one Adam
     step; the loss, ``loss_fn(state.policy, memory, cfg)`` (``ppo_loss``
     unless given), runs under ``autocast()`` (``GFV.autocast`` for a
     model that computes in another dtype than its parameters'), its
-    backward outside. The policy is in train mode meanwhile, so that a
-    BatchNorm encoder normalises with batch statistics and advances its
-    running ones once an epoch; its former mode after. Returns the last
-    epoch's metrics, 0-d tensors."""
+    backward outside. With ``replicas``, each epoch's gradients are
+    averaged over them before the Adam step, as the JAX package's
+    ``pmean`` in every epoch. The policy is in train mode meanwhile, so
+    that a BatchNorm encoder normalises with batch statistics and advances
+    its running ones once an epoch (each replica its own; the step averages
+    them after); its former mode after. Returns the last epoch's metrics of
+    this replica, 0-d tensors."""
     with training(state.policy):
         for _ in range(state.cfg.k_epochs):
             state.optimizer.zero_grad(set_to_none=True)
             with autocast():
                 loss, metrics = loss_fn(state.policy, memory, state.cfg)
             loss.backward()
+            average_grads_(state.optimizer, replicas)
             state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}

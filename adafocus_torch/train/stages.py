@@ -19,6 +19,11 @@ A frozen phase runs under ``torch.no_grad()`` with its backbone in eval
 mode, so its running statistics stay as they are; its parameters are out of
 the optimizer (train/optim.py). Where the JAX step returns a new state, a
 step here updates the model and the optimizer in place, PyTorch's idiom.
+
+Each step factory takes ``replicas`` (``parallel/mesh.py``) where the JAX
+steps take ``axis_name``: the rank trains on its shard of the batch, and
+the gradients, the running statistics (once, after the step), the returns'
+moments and the metrics are averaged over the replicas.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ from adafocus_torch.models.layers import stats_frozen, training
 from adafocus_torch.models.policy import discrete_logprobs, discrete_to_coords, sample_rollout
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import random_patch_actions
+from adafocus_torch.parallel.mesh import (
+    Replicas, average_bn_stats_, average_grads_, average_metrics,
+)
 from adafocus_torch.ppo.core import (
     PPOConfig, PPOState, compute_rewards, discounted_returns, ppo_init, ppo_update,
 )
@@ -112,7 +120,8 @@ def _ce_per_step(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimizer,
-                          scheduler: torch.optim.lr_scheduler.LRScheduler) -> Callable:
+                          scheduler: torch.optim.lr_scheduler.LRScheduler,
+                          replicas: Optional[Replicas] = None) -> Callable:
     """Stage 0, 1 or 3. Returns ``step(batch, generator, actions=None,
     keep=None, mark=None) -> {"loss", "top1", "top5"}``.
 
@@ -125,7 +134,8 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
     'extract', 'focus', 'classify', 'heads' (stage 0's backbone heads),
     'backward', 'optimizer'. The metrics are 0-d tensors
     on the device: the loss and the top-1/top-5 accuracy of the last step's
-    logits.
+    logits. With ``replicas`` the batch is this rank's shard; the
+    gradients, the running statistics and the metrics are averaged.
     """
     if stage not in (0, 1, 3):
         raise ValueError(f"stage {stage}: stages 0, 1 and 3 only "
@@ -177,10 +187,11 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
                 note("heads")
         loss.backward()
         note("backward")
-        _sgd_step(optimizer, scheduler)
+        _sgd_step(optimizer, scheduler, replicas)
+        average_bn_stats_(model, replicas)
         note("optimizer")
         top1, top5 = topk_accuracy(_final(logits).detach(), labels)
-        return {"loss": loss.detach(), "top1": top1, "top5": top5}
+        return average_metrics({"loss": loss.detach(), "top1": top1, "top5": top5}, replicas)
 
     return step
 
@@ -192,15 +203,17 @@ def _final(logits: torch.Tensor) -> torch.Tensor:
 
 
 def _sgd_step(optimizer: torch.optim.Optimizer,
-              scheduler: torch.optim.lr_scheduler.LRScheduler) -> None:
+              scheduler: torch.optim.lr_scheduler.LRScheduler,
+              replicas: Optional[Replicas] = None) -> None:
     """One optimizer and schedule step after the backward. optax updates
     every trainable leaf, one the loss does not reach too (zero gradient:
     weight decay and momentum still move it), so such a leaf gets a zero
-    gradient first."""
+    gradient first; then the gradients are averaged over ``replicas``."""
     for group in optimizer.param_groups:
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    average_grads_(optimizer, replicas)
     optimizer.step()
     scheduler.step()
 
@@ -246,13 +259,15 @@ def stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], cfg: PPOConfig,
                    behavior_idx: Optional[torch.Tensor] = None,
                    baseline_actions: Optional[torch.Tensor] = None,
-                   note: Callable[[str], None] = lambda phase: None) -> Dict[str, torch.Tensor]:
+                   note: Callable[[str], None] = lambda phase: None,
+                   replicas: Optional[Replicas] = None) -> Dict[str, torch.Tensor]:
     """The stage-2 episode, every phase frozen and under ``no_grad``: the
     glance; the behavior policy's sampled rollout; extraction and focus at
     its actions; the GRU classifier with its hiddens; the rewards
     (``cfg.reward_mode``; for 'random' the baseline: extraction and focus at
     uniform random actions, then one ``classifier_lookahead`` from each
-    step's previous hidden h_{t-1}); the normalised discounted returns.
+    step's previous hidden h_{t-1}); the normalised discounted returns
+    (over ``replicas``, with the global batch's moments).
     Draws, in this order, the behavior sample and the baseline actions from
     ``generator``; ``behavior_idx`` (T, B) and ``baseline_actions`` (B, T, 2)
     replace them. Returns PPO's memory (fmaps, actions, old_logprob,
@@ -292,13 +307,14 @@ def stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
             baseline = _target_confidence(base_logits.reshape(b, t, -1), labels)
             note("baseline")
         rewards = compute_rewards(confidence, baseline, cfg.reward_mode)
-        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma)
+        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma, replicas)
         note("returns")
     return {"fmaps": fmaps_tb, "actions": roll["store"], "old_logprob": roll["logprob"],
             "returns": returns, "rewards": rewards, "confidence": confidence}
 
 
-def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
+def make_stage2_step(model: GFV, ppo: PPOState, replicas: Optional[Replicas] = None
+                     ) -> Callable:
     """Stage 2, PPO on the patch policy. Returns ``step(batch, generator,
     behavior_idx=None, baseline_actions=None, mark=None) -> metrics``.
 
@@ -312,7 +328,11 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
     'glance', 'rollout', 'extract', 'focus', 'classify', 'baseline' (reward
     'random'), 'returns', 'update'. The metrics are 0-d tensors on the
     device: the PPO loss terms and mean ratio of the last epoch, and the
-    mean reward and confidence.
+    mean reward and confidence. With ``replicas`` the batch is this rank's
+    shard: the returns take the global batch's moments, every epoch's
+    gradients are averaged, then the policy's running statistics (a
+    BatchNorm encoder's, which each replica carries through the epochs) and
+    the metrics.
     """
     _check_trainable(model)
     _check_learner(model, ppo)
@@ -323,12 +343,13 @@ def make_stage2_step(model: GFV, ppo: PPOState) -> Callable:
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         note = mark or (lambda phase: None)
         episode = stage2_episode(model, batch, generator, ppo.cfg, behavior_idx,
-                                 baseline_actions, note)
-        metrics = ppo_update(ppo, episode, model.autocast)
+                                 baseline_actions, note, replicas)
+        metrics = ppo_update(ppo, episode, model.autocast, replicas=replicas)
+        average_bn_stats_(model.policy, replicas)
         note("update")
         metrics["reward_mean"] = episode["rewards"].mean()
         metrics["confidence"] = episode["confidence"].mean()
-        return metrics
+        return average_metrics(metrics, replicas)
 
     return step
 

@@ -16,6 +16,11 @@ adafocus_tpu/train/stages_plus.py).
 As in the JAX package, stages 1 and 3 run the focuser in train mode, so its
 BatchNorm normalises with batch statistics and advances its running ones in
 stage 3 as well, where its parameters are frozen.
+
+With ``replicas`` (``parallel/mesh.py``), as in train/stages.py, the batch
+is the rank's shard and the gradients, running statistics, returns' moments
+and metrics are averaged over the replicas; the joint stage 2 averages no
+statistics, since it leaves them as they are.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from adafocus_torch.models.gfv_plus import forward_plus, gather_frames, inferenc
 from adafocus_torch.models.layers import stats_frozen
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import random_patch_actions
+from adafocus_torch.parallel.mesh import Replicas, average_bn_stats_, average_metrics
 from adafocus_torch.ppo.core import (
     PPOConfig, PPOState, clipped_objective, compute_rewards, discounted_returns,
     evaluate_episode, ppo_update,
@@ -47,7 +53,8 @@ def _check_plus(model: GFV) -> None:
 
 
 def make_plus_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimizer,
-                         scheduler: torch.optim.lr_scheduler.LRScheduler) -> Callable:
+                         scheduler: torch.optim.lr_scheduler.LRScheduler,
+                         replicas: Optional[Replicas] = None) -> Callable:
     """Supervised AdaFocus+ stages 1 and 3. Returns ``step(batch, generator,
     uniforms=None, frame_idx=None, actions=None, mark=None) -> {"loss",
     "top1", "top5"}``: ``forward_plus`` in train mode with the glancer
@@ -75,10 +82,11 @@ def make_plus_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimize
         loss = _ce_per_step(logits, batch["labels"])
         loss.backward()
         note("backward")
-        _sgd_step(optimizer, scheduler)
+        _sgd_step(optimizer, scheduler, replicas)
+        average_bn_stats_(model, replicas)
         note("optimizer")
         top1, top5 = topk_accuracy(_final(logits).detach().float(), batch["labels"])
-        return {"loss": loss.detach(), "top1": top1, "top5": top5}
+        return average_metrics({"loss": loss.detach(), "top1": top1, "top5": top5}, replicas)
 
     return step
 
@@ -144,8 +152,8 @@ def joint_loss(learner: nn.ModuleDict, memory: Dict[str, torch.Tensor], cfg: PPO
 def plus_stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
                         generator: Optional[torch.Generator], cfg: PPOConfig,
                         draws: Optional[Dict[str, torch.Tensor]] = None,
-                        note: Callable[[str], None] = lambda phase: None
-                        ) -> Dict[str, torch.Tensor]:
+                        note: Callable[[str], None] = lambda phase: None,
+                        replicas: Optional[Replicas] = None) -> Dict[str, torch.Tensor]:
     """The joint stage-2 episode, every phase frozen and under ``no_grad``:
     the glance; the selector's sampled K-slot rollout; the patch policy's
     sampled rollout over the K picked frames; extraction and focus at its
@@ -201,14 +209,15 @@ def plus_stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
                                           rand_local)
         note("classify")
         rewards = compute_rewards(conf, baseline, cfg.reward_mode)
-        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma)
+        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma, replicas)
         note("returns")
     return {"pooled": pooled, "idx": idx, "fmaps": fmaps_tb, "actions": roll["store"],
             "old_logprob": sel["logprob"].transpose(0, 1) + roll["logprob"],
             "returns": returns, "rewards": rewards, "confidence": conf}
 
 
-def make_plus_stage2_joint_step(model: GFV, ppo: PPOState) -> Callable:
+def make_plus_stage2_joint_step(model: GFV, ppo: PPOState,
+                                replicas: Optional[Replicas] = None) -> Callable:
     """Joint temporal + spatial PPO (``plus_rl``). Returns ``step(batch,
     generator, draws=None, mark=None) -> metrics``: ``plus_stage2_episode``,
     then ``ppo_update`` with ``joint_loss`` trains the selector actor-critic
@@ -229,12 +238,12 @@ def make_plus_stage2_joint_step(model: GFV, ppo: PPOState) -> Callable:
              draws: Optional[Dict[str, torch.Tensor]] = None,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         note = mark or (lambda phase: None)
-        episode = plus_stage2_episode(model, batch, generator, ppo.cfg, draws, note)
-        metrics = ppo_update(ppo, episode, model.autocast, joint_loss)
+        episode = plus_stage2_episode(model, batch, generator, ppo.cfg, draws, note, replicas)
+        metrics = ppo_update(ppo, episode, model.autocast, joint_loss, replicas)
         note("update")
         metrics["reward_mean"] = episode["rewards"].mean()
         metrics["confidence"] = episode["confidence"].mean()
-        return metrics
+        return average_metrics(metrics, replicas)
 
     return step
 

@@ -18,7 +18,11 @@ another class count keep their fresh weights (``train/checkpoint.py``).
 As in train/stages.py, a step updates the model and its optimizer in place;
 a frozen phase runs under ``torch.no_grad()`` with its module in eval mode.
 Batches: ``frames`` (B, Tf, S, S, 3) focuser frames, unpadded,
-``frames_small`` (B, Tg, g, g, 3) glancer frames, ``labels`` (B,).
+``frames_small`` (B, Tg, g, g, 3) glancer frames, ``labels`` (B,). With
+``replicas`` (``parallel/mesh.py``), as in train/stages.py, the batch is the
+rank's shard and the gradients, running statistics, returns' moments and
+metrics are averaged over the replicas; under partial BatchNorm the frozen
+statistics are equal on every replica and average to themselves.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from adafocus_torch.models.gfv_sthsth import (
 )
 from adafocus_torch.ops.metrics import topk_accuracy
 from adafocus_torch.ops.patch import random_patch_actions
+from adafocus_torch.parallel.mesh import Replicas, average_bn_stats_, average_metrics
 from adafocus_torch.ppo.core import (
     PPOConfig, PPOState, compute_rewards, discounted_returns, ppo_update,
 )
@@ -50,7 +55,8 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def make_sthsth_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimizer,
-                           scheduler: torch.optim.lr_scheduler.LRScheduler) -> Callable:
+                           scheduler: torch.optim.lr_scheduler.LRScheduler,
+                           replicas: Optional[Replicas] = None) -> Callable:
     """Stage 1 or 3. Returns ``step(batch, generator, actions=None,
     keep=None, mark=None) -> {"loss", "top1", "top5"}``.
 
@@ -95,10 +101,11 @@ def make_sthsth_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimi
             note("classify")
         loss.backward()
         note("backward")
-        _sgd_step(optimizer, scheduler)
+        _sgd_step(optimizer, scheduler, replicas)
+        average_bn_stats_(model, replicas)
         note("optimizer")
         top1, top5 = topk_accuracy(total.detach().float(), labels)
-        return {"loss": loss.detach(), "top1": top1, "top5": top5}
+        return average_metrics({"loss": loss.detach(), "top1": top1, "top5": top5}, replicas)
 
     return step
 
@@ -107,8 +114,8 @@ def sthsth_stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
                           generator: Optional[torch.Generator], cfg: PPOConfig,
                           behavior: Optional[torch.Tensor] = None,
                           baseline_actions: Optional[torch.Tensor] = None,
-                          note: Callable[[str], None] = lambda phase: None
-                          ) -> Dict[str, torch.Tensor]:
+                          note: Callable[[str], None] = lambda phase: None,
+                          replicas: Optional[Replicas] = None) -> Dict[str, torch.Tensor]:
     """The sth-sth stage-2 episode, every phase frozen and under
     ``no_grad``: the TSM glance (maps and logits); the behavior rollout over
     the D divisions' stacked maps; one extraction of all B*Tf patches at the
@@ -155,13 +162,14 @@ def sthsth_stage2_episode(model: GFV, batch: Dict[str, torch.Tensor],
             rewards = conf - base_conf
         else:
             rewards = compute_rewards(conf, None, cfg.reward_mode)
-        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma)
+        returns = discounted_returns(rewards.transpose(0, 1), cfg.gamma, replicas)
         note("returns")
     return {"fmaps": fmaps_tb, "actions": roll["store"], "old_logprob": roll["logprob"],
             "returns": returns, "rewards": rewards, "confidence": conf}
 
 
-def make_sthsth_stage2_step(model: GFV, ppo: PPOState) -> Callable:
+def make_sthsth_stage2_step(model: GFV, ppo: PPOState, replicas: Optional[Replicas] = None
+                            ) -> Callable:
     """Stage 2, per-division PPO on the policy (discrete or continuous, with
     or without the BatchNorm encoder). Returns ``step(batch, generator,
     behavior=None, baseline_actions=None, mark=None) -> metrics``: the
@@ -170,7 +178,9 @@ def make_sthsth_stage2_step(model: GFV, ppo: PPOState) -> Callable:
     once an epoch. ``mark(phase)``: 'glance', 'rollout', 'extract', 'focus',
     'classify', 'baseline' (reward 'random'), 'returns', 'update'. The
     metrics are 0-d tensors on the device: the PPO loss terms and mean
-    ratio of the last epoch, and the mean reward and confidence."""
+    ratio of the last epoch, and the mean reward and confidence. With
+    ``replicas`` each replica carries its encoder's statistics through the
+    epochs and they are averaged once, after the update."""
     _check_trainable(model, sthsth=True)
     _check_learner(model, ppo)
 
@@ -180,12 +190,13 @@ def make_sthsth_stage2_step(model: GFV, ppo: PPOState) -> Callable:
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         note = mark or (lambda phase: None)
         episode = sthsth_stage2_episode(model, batch, generator, ppo.cfg, behavior,
-                                        baseline_actions, note)
-        metrics = ppo_update(ppo, episode, model.autocast)
+                                        baseline_actions, note, replicas)
+        metrics = ppo_update(ppo, episode, model.autocast, replicas=replicas)
+        average_bn_stats_(model.policy, replicas)
         note("update")
         metrics["reward_mean"] = episode["rewards"].mean()
         metrics["confidence"] = episode["confidence"].mean()
-        return metrics
+        return average_metrics(metrics, replicas)
 
     return step
 

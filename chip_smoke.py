@@ -186,14 +186,35 @@ Phases, each raising on failure:
      ``adafocus_torch.models`` module and no JAX; each artifact's logits
      against the eager ones (max|d| / max|eager| <= 1e-2). cuDNN's
      autotuner and TF32 are off in both processes.
+ 14. data parallelism (``adafocus_torch.parallel``), this slice's main
+     path, on the one card. (a) A one-rank NCCL group at the flagship's
+     width (bf16 compute over float32 parameters, B=64): one stage-1 and
+     one stage-2 step (reward 'random') through the group against the
+     plain step on the same weights, batch and injected actions, cuDNN's
+     deterministic algorithms: parameters, running statistics and metrics
+     bit-identical (an average over one rank is the identity), exactly 1
+     and 2 patch launches a step with the counts set to 0 just before,
+     the PPO ratio within 1e-3 of 1; then each step's ms with and without
+     the group, and the gradient all-reduce's ms and bytes (the optimizer's
+     parameters). (b) Two ranks sharing the card over gloo (processes of
+     their own), float32 with TF32 off, B=8 a rank, two steps of stage 1
+     and of stage 2: the replicas' weights bit-identical after every step,
+     each rank's patch kernel bit-identical to the plain version on its
+     shard, one and two launches a step; stage 1's averaged gradient and
+     loss against this process's two B=8 plain steps averaged by hand
+     (phase 6's float32 limits: the whole-batch step normalises
+     differently), stage 2's against one plain step on the whole B=16
+     batch (phase 7's). (c) ``python -m adafocus_torch.parallel.dryrun
+     --ranks 1`` and its seconds.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
-configuration's results, the bench, the CLI's results, phase 10's and
-phase 11's, phase 12's and phase 13's results and the kernel table (each kernel's launches on every
-path, its times at the flagship's and the matched configuration's shapes; the int8 kernels'
-at phase 12's unit shapes) as JSON lines, then as its last line
+configuration's results, the bench, the CLI's results, phase 10's,
+phase 11's, phase 12's, phase 13's and phase 14's results and the kernel
+table (each kernel's launches on every path, its times at the flagship's and
+the matched configuration's shapes; the int8 kernels' at phase 12's unit
+shapes) as JSON lines, then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3621,6 +3642,399 @@ def export_run(device, card: str, q8_scales) -> dict:
             "seconds": time.perf_counter() - start}
 
 
+# phase 14, data parallelism (adafocus_torch.parallel). A one-rank group's
+# averages are identities, so its steps equal the plain ones bit for bit
+# (cuDNN's deterministic algorithms on both). Two ranks on the one card
+# share it over gloo, whose collectives take CUDA tensors; their float32
+# results are held to phases 6's and 7's limits against one process.
+DP_B = 64                    # phase 6's batch, one rank
+DP_SHARED_B = 8              # a rank's batch when two ranks share the card
+DP_TIMED = 3                 # timed steps with and without the group
+DP_ALLREDUCE_REPS = 5
+DP_TIMEOUT = 300             # seconds for each process of (b) and (c)
+_DP_RANK = (
+    "import sys; sys.path.insert(0, {root!r}); import chip_smoke as cs; "
+    "cs.dp_shared_rank(int(sys.argv[1]), sys.argv[2])"
+)
+
+
+def _dp_deterministic(on: bool) -> None:
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def _mean_step_ms(step, args, n: int) -> float:
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    ev[0].record()
+    for k in range(n):
+        step(*args)
+        ev[k + 1].record()
+    torch.cuda.synchronize()
+    return sum(ev[k].elapsed_time(ev[k + 1]) for k in range(n)) / n
+
+
+def _dp_state_like(model, stage: int):
+    """A train state of ``stage`` over a copy of ``model``'s weights: what
+    ``create_train_state`` gives from the same seed, without another build
+    of the model on the host."""
+    from adafocus_torch.ppo.core import PPOConfig, ppo_init
+    from adafocus_torch.train.optim import OptimConfig, freeze_for_stage, make_stage_optimizer
+    from adafocus_torch.train.stages import TrainState
+
+    model = copy.deepcopy(model)
+    if stage == 2:
+        freeze_for_stage(model, 2)
+        return TrainState(model, None, None, ppo_init(model.policy, PPOConfig()))
+    return TrainState(model, *make_stage_optimizer(model, stage, OptimConfig()))
+
+
+def _dp_step(state, stage: int, replicas):
+    from adafocus_torch.train.stages import make_stage2_step, make_stage_train_step
+
+    if stage == 2:
+        return make_stage2_step(state.model, state.ppo, replicas)
+    return make_stage_train_step(state.model, stage, state.optimizer, state.scheduler, replicas)
+
+
+def _dp_states(cfg, stage: int, device, replicas):
+    """The plain and the group step of ``stage`` on two models of the same
+    weights: ((state, step), (state, step))."""
+    import torch
+
+    from adafocus_torch.train.stages import create_train_state
+
+    plain = create_train_state(cfg, stage, device=device,
+                               generator=torch.Generator().manual_seed(SEED))
+    group = _dp_state_like(plain.model, stage)
+    return (plain, _dp_step(plain, stage, None)), (group, _dp_step(group, stage, replicas))
+
+
+def dp_one_rank(device, card: str, tmp: str) -> dict:
+    """Phase 14 (a): the one-rank NCCL group at the flagship's width."""
+    import torch
+
+    from adafocus_torch.models.gfv import flagship
+    from adafocus_torch.ops.patch import random_patch_actions
+    from adafocus_torch.parallel import mesh
+
+    cfg = flagship()
+    replicas = mesh.init_replicas(f"file://{tmp}/one_rank", 1, 0, "cuda",
+                                  local_rank=device.index or 0)
+    out = {"launches": {}}
+    try:
+        for stage in (1, 2):
+            (plain_state, plain), (dp_state, dp) = _dp_states(cfg, stage, device, replicas)
+            gen = torch.Generator(device=device).manual_seed(SEED + 140 + stage)
+            batch = _train_batch(cfg, DP_B, device, SEED + 142 + stage, torch.bfloat16)
+            t = cfg.num_frames
+            if stage == 1:
+                draws = (random_patch_actions((DP_B, t), gen, device),)
+            else:
+                draws = (torch.randint(0, cfg.action_dim, (t, DP_B), generator=gen,
+                                       device=device),
+                         random_patch_actions((DP_B, t), gen, device))
+            _dp_deterministic(True)
+            metrics = [{k: float(v) for k, v in plain(batch, None, *draws).items()}]
+            torch.cuda.synchronize()
+            _q8_counts(reset=True)
+            metrics.append({k: float(v) for k, v in dp(batch, None, *draws).items()})
+            torch.cuda.synchronize()
+            one_step = _q8_counts()
+            _dp_deterministic(False)
+            want = 1 if stage == 1 else 2
+            if one_step["extract_patches"] != want:
+                raise AssertionError(f"data-parallel stage {stage}: "
+                                     f"{one_step['extract_patches']} patch launches, want {want}")
+            a, b = plain_state.model.state_dict(), dp_state.model.state_dict()
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            if differ or metrics[0] != metrics[1]:
+                raise AssertionError(f"data-parallel stage {stage} over one rank differs from "
+                                     f"the plain step: tensors {differ[:5]}, metrics {metrics}")
+            if stage == 2 and not abs(metrics[1]["ppo/ratio_mean"] - 1.0) <= RATIO_TOL:
+                raise AssertionError(f"data-parallel stage 2 ratio_mean {metrics[1]}")
+            opt = dp_state.optimizer if stage == 1 else dp_state.ppo.optimizer
+            params = [p for g in opt.param_groups for p in g["params"]]
+            n_values = sum(p.numel() for p in params)
+            allreduce_ms = _mean_step_ms(lambda: mesh.average_grads_(opt, replicas), (),
+                                         DP_ALLREDUCE_REPS)
+            # timed in turns (plain, group, group, plain) after a warm-up
+            # step of each; the group's launches counted over all its steps
+            plain(batch, gen)
+            _q8_counts(reset=True)
+            dp(batch, gen)
+            torch.cuda.synchronize()
+            launches = {k: one_step[k] + v for k, v in _q8_counts().items()}
+            n_steps = 2
+            runs = {"plain": [], "group": []}
+            for name in ("plain", "group", "group", "plain"):
+                _q8_counts(reset=True)
+                runs[name].append(_mean_step_ms(plain if name == "plain" else dp, (batch, gen),
+                                                DP_TIMED))
+                if name == "group":
+                    n_steps += DP_TIMED
+                    launches = {k: launches[k] + v for k, v in _q8_counts().items()}
+            ms = {k: sum(v) / len(v) for k, v in runs.items()}
+            if launches["extract_patches"] != want * n_steps:
+                raise AssertionError(f"data-parallel stage {stage}: {launches} in "
+                                     f"{n_steps} steps")
+            out["launches"][stage] = launches
+            out[stage] = {"metrics": metrics[1], "step_ms": ms, "allreduce_ms": allreduce_ms,
+                          "allreduce_bytes": 4 * n_values, "trained_values": n_values}
+            print(f"data-parallel stage {stage}, one-rank NCCL group, flagship bf16 B={DP_B}: "
+                  f"parameters, running statistics and metrics bit-identical to the plain "
+                  f"step; patch launches {launches['extract_patches']} in {n_steps} "
+                  f"steps; step ms plain {ms['plain']!r}, group {ms['group']!r} (mean of "
+                  f"{2 * DP_TIMED} each, timed in turns); gradient all-reduce "
+                  f"{allreduce_ms!r} ms for {n_values} float32 values ({4 * n_values} B, the "
+                  f"optimizer's parameters); metrics "
+                  f"{json.dumps(metrics[1])} ({card})", flush=True)
+            del plain_state, dp_state, plain, dp, batch
+            torch.cuda.empty_cache()
+    finally:
+        mesh.shutdown(replicas)
+    return out
+
+
+def _dp_shared_inputs(cfg, device):
+    """The global B=2*DP_SHARED_B batch and each step's draws of (b), the
+    same in every process: {stage: (batch, [draws of step 0, of step 1])}."""
+    import torch
+
+    from adafocus_torch.ops.patch import random_patch_actions
+
+    b, t = 2 * DP_SHARED_B, cfg.num_frames
+    gen = torch.Generator(device=device).manual_seed(SEED + 150)
+    out = {}
+    for stage in (1, 2):
+        batch = _train_batch(cfg, b, device, SEED + 150 + stage, torch.float32)
+        draws = []
+        for _ in range(2):
+            if stage == 1:
+                draws.append((random_patch_actions((b, t), gen, device),))
+            else:
+                draws.append((torch.randint(0, cfg.action_dim, (t, b), generator=gen,
+                                            device=device),
+                              random_patch_actions((b, t), gen, device)))
+        out[stage] = (batch, draws)
+    return out
+
+
+def _dp_shard_draws(draws, rank: int):
+    """A rank's rows of the draws: actions (B, T, 2) by rows, behavior
+    indices (T, B) by columns."""
+    n = DP_SHARED_B
+    if len(draws) == 1:
+        return (draws[0][rank * n:(rank + 1) * n],)
+    return (draws[0][:, rank * n:(rank + 1) * n], draws[1][rank * n:(rank + 1) * n])
+
+
+def _dp_cfg32():
+    from adafocus_torch.models.gfv import flagship
+    import torch
+
+    return dataclasses.replace(flagship(), dtype=torch.float32)
+
+
+def dp_shared_rank(rank: int, tmp: str) -> None:
+    """Phase 14 (b), one of the two ranks sharing the card (a process of its
+    own). Raises if the replicas' weights differ after a step or the patch
+    kernel differs from the plain version on its shard; rank 0 writes the
+    averaged gradients and metrics of each stage's first step."""
+    import torch
+
+    from adafocus_torch.models.gfv import extract_for_frames
+    from adafocus_torch.ops.patch import extract_patches
+    from adafocus_torch.parallel import mesh
+    from adafocus_torch.train.stages import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _dp_deterministic(True)
+    device = torch.device("cuda", 0)
+    replicas = mesh.init_replicas(f"file://{tmp}/shared", 2, rank, "cuda", local_rank=0,
+                                  backend="gloo")
+    cfg = _dp_cfg32()
+    out = {}
+    try:
+        # each rank starts from weights of its own seed; replicate gives
+        # every rank rank 0's
+        base = create_train_state(cfg, 1, device=device,
+                                  generator=torch.Generator().manual_seed(SEED + rank))
+        mesh.replicate(base, replicas)
+        states = {1: base, 2: _dp_state_like(base.model, 2)}
+        for stage, (batch, draws) in _dp_shared_inputs(cfg, device).items():
+            state = states.pop(stage)
+            step = _dp_step(state, stage, replicas)
+            shard = mesh.shard_batch(batch, replicas)
+            res = {"metrics": [], "launches": 0}
+            for k, step_draws in enumerate(draws):
+                mine = _dp_shard_draws(step_draws, rank)
+                before = extract_patches.launches
+                res["metrics"].append({m: float(v) for m, v in
+                                       step(shard, None, *mine).items()})
+                torch.cuda.synchronize()
+                res["launches"] += extract_patches.launches - before
+                digests = mesh.gather_objects(mesh.digest(state.model), replicas)
+                if len(set(digests)) != 1:
+                    raise AssertionError(f"stage {stage} step {k}: the replicas differ")
+                if k == 0:
+                    opt = state.optimizer if stage == 1 else state.ppo.optimizer
+                    trained = {id(q) for g in opt.param_groups for q in g["params"]}
+                    res["grads"] = {n: p.grad.detach().double().cpu()
+                                    for n, p in state.model.named_parameters()
+                                    if id(p) in trained}
+            if stage == 1:
+                actions = _dp_shard_draws(draws[1], rank)[0]
+                got = extract_for_frames(shard["frames"], actions, cfg.image_size,
+                                         cfg.patch_size)
+                want = extract_for_frames(shard["frames"].cpu(), actions.cpu(), cfg.image_size,
+                                          cfg.patch_size)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"rank {rank}: the patch kernel differs from the "
+                                         "plain version on its shard")
+            out[stage] = res
+    finally:
+        mesh.shutdown(replicas)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _dp_reference(device) -> dict:
+    """Phase 14 (b)'s references in this process: stage 1's two B=8 plain
+    steps' gradients averaged by hand, stage 2's plain step on the whole
+    batch; float32, TF32 off."""
+    import torch
+
+    from adafocus_torch.train.stages import create_train_state
+
+    cfg = _dp_cfg32()
+    inputs = _dp_shared_inputs(cfg, device)
+    init = create_train_state(cfg, 1, device=device,
+                              generator=torch.Generator().manual_seed(SEED)).model
+    out = {}
+    batch, draws = inputs[1]
+    runs = []
+    for rank in range(2):
+        state = _dp_state_like(init, 1)
+        n = DP_SHARED_B
+        shard = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        loss = float(_dp_step(state, 1, None)(shard, None,
+                                              *_dp_shard_draws(draws[0], rank))["loss"])
+        runs.append((loss, {n_: p.grad.detach().double().cpu()
+                            for n_, p in state.model.named_parameters() if p.grad is not None}))
+        del state
+    out[1] = {"loss": (runs[0][0] + runs[1][0]) / 2,
+              "grads": {k: (runs[0][1][k] + runs[1][1][k]) / 2 for k in runs[0][1]}}
+    batch, draws = inputs[2]
+    state = _dp_state_like(init, 2)
+    del init
+    metrics = _dp_step(state, 2, None)(batch, None, *draws[0])
+    out[2] = {"loss": float(metrics["ppo/loss"]),
+              "grads": {n: p.grad.detach().double().cpu()
+                        for n, p in state.model.named_parameters() if p.grad is not None}}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_two_ranks(device, card: str, tmp: str) -> dict:
+    """Phase 14 (b): two ranks sharing the card, against this process."""
+    import torch
+
+    start = time.perf_counter()
+    code = _DP_RANK.format(root=ROOT)
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(2)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, "w") as log:
+            procs.append(subprocess.Popen([sys.executable, "-c", code, str(r), tmp], cwd=ROOT,
+                                          stdout=log, stderr=subprocess.STDOUT))
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        _dp_deterministic(True)
+        ref = _dp_reference(device)
+        _dp_deterministic(False)
+        deadline = start + DP_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path) as f:
+                text = f.read()
+            raise AssertionError(f"phase 14 (b) rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    out = {"seconds": time.perf_counter() - start}
+    failed = []
+    for stage, (loss_tol, cos_min) in ((1, (F32_LOSS_REL_TOL, F32_GRAD_MIN_COS)),
+                                       (2, (PPO_F32_LOSS_REL_TOL, PPO_F32_GRAD_MIN_COS))):
+        got, want = ranks[0][stage], ref[stage]
+        key = "loss" if stage == 1 else "ppo/loss"
+        loss = got["metrics"][0][key]
+        rel = abs(loss - want["loss"]) / abs(want["loss"])
+        comps = ("focuser", "classifier") if stage == 1 else ("policy",)
+        cos = {}
+        for comp in comps:
+            names = sorted(k for k in got["grads"] if k.startswith(comp + "."))
+            g = torch.cat([got["grads"][k].flatten() for k in names])
+            w = torch.cat([want["grads"][k].flatten() for k in names])
+            cos[comp] = float(torch.nn.functional.cosine_similarity(g, w, dim=0))
+        launches = [ranks[r][stage]["launches"] for r in range(2)]
+        want_launches = 2 * (1 if stage == 1 else 2)
+        out[stage] = {"loss": loss, "loss_ref": want["loss"], "loss_rel": rel, "grad_cos": cos,
+                      "launches": launches, "metrics": got["metrics"]}
+        failed += [f"stage {stage} loss"] if not rel <= loss_tol else []
+        failed += [f"stage {stage} {c} cosine" for c, v in cos.items() if not v >= cos_min]
+        failed += [f"stage {stage} launches"] if launches != [want_launches] * 2 else []
+        print(f"data-parallel stage {stage}, two ranks sharing the card over gloo, float32 "
+              f"B={DP_SHARED_B} a rank, two steps: replicas bit-identical after each, each "
+              f"rank's patch kernel bit-identical to the plain version on its shard; "
+              f"patch launches a rank {launches}; averaged loss {loss!r} vs "
+              + ("two B=8 plain steps averaged by hand" if stage == 1
+                 else "one plain step on the whole B=16 batch")
+              + f" {want['loss']!r} (relative {rel!r}, limit {loss_tol}); gradient cosine "
+              f"{cos} (limit {cos_min}) ({card})", flush=True)
+    if failed:
+        raise AssertionError(f"phase 14 (b) failed: {failed}")
+    return out
+
+
+def dp_dryrun(card: str) -> dict:
+    """Phase 14 (c): the dry run over one rank, in a process of its own."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "adafocus_torch.parallel.dryrun", "--ranks",
+                           "1"], cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - start
+    ok = [ln for ln in proc.stdout.splitlines() if "dryrun --ranks 1" in ln and " ok:" in ln]
+    if proc.returncode != 0 or not ok:
+        raise AssertionError(f"dry run exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    print(f"{ok[0]} -- {seconds!r} s in all, the process's start included ({card})",
+          flush=True)
+    return {"seconds": seconds, "line": ok[0]}
+
+
+def dp_phase(device, card: str) -> dict:
+    """Phase 14: (a), (b) and (c); each raises on failure."""
+    import tempfile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"one_rank": dp_one_rank(device, card, tmp)}
+        out["two_ranks"] = dp_two_ranks(device, card, tmp)
+    out["dryrun"] = dp_dryrun(card)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3741,14 +4155,18 @@ def main() -> int:
     done(f"phase 12 ({q8['seconds']:.1f} s)")
     export = export_phase(device, card, q8.pop("flagship_scales"))
     done(f"phase 13 ({export['seconds']:.1f} s)")
-    # each kernel's count from the run of this slice's main path (phase 13,
-    # below), and for the blocks the matched sth-sth forward's fused path; the
-    # counts of the other paths beside them
+    dp = dp_phase(device, card)
+    done(f"phase 14 ({dp['seconds']:.1f} s)")
+    # each kernel's count from the run of this slice's main path (phase 14,
+    # the patch kernel; below), for the int8 kernels phase 13's and for the
+    # blocks the matched sth-sth forward's fused path; the counts of the
+    # other paths beside them
     n_steps = TRAIN_WARMUP + TRAIN_TIMED
     sth_cli = sthsth["cli"]
     n_sth_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
     n_plus_val = -(-PLUS_CLI_VIDEOS // PLUS_CLI_B)
-    paths = {**{f"CLI AdaFocus+ train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
+    paths = {**{f"data-parallel stage {st}": c for st, c in dp["one_rank"]["launches"].items()},
+             **{f"CLI AdaFocus+ train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
                 f"and {n_plus_val} eval batches": v["launches"]
                 for st, v in plus["cli"]["stages"].items()},
              f"CLI AdaFocus+ evaluate, {n_plus_val} batches": plus["cli"]["evaluate"]["launches"],
@@ -3803,7 +4221,7 @@ def main() -> int:
         row["matched"] = {k: mrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "max_abs_err", "shape")}
     rows += q8["kernel_rows"]
-    # this slice's main path, the flagship's int8 artifact reloaded in a fresh
+    # the export path, the flagship's int8 artifact reloaded in a fresh
     # process, launches the patch kernel and both int8 kernels through their
     # custom ops; the fused blocks stay ctypes calls, off every export path
     # (JAX exports the library path), with their counts from phase 8
@@ -3813,6 +4231,7 @@ def main() -> int:
         row["custom_op"] = ops.get(row["name"])
         if row["name"] in ops:
             row["launches"] = export["artifacts"]["flagship int8"]["launches"][row["name"]]
+    rows[0]["launches"] = sum(c["extract_patches"] for c in dp["one_rank"]["launches"].values())
     # a path's count of a kernel it was not counted for (the int8 kernels
     # before phase 12) is None
     for row in rows:
@@ -3830,6 +4249,7 @@ def main() -> int:
     print(json.dumps({"plus": plus}), flush=True)
     print(json.dumps({"int8": {k: v for k, v in q8.items() if k != "kernel_rows"}}), flush=True)
     print(json.dumps({"export": export}), flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,9 @@ the CPU. The slice as a whole against the JAX CLI: tests/test_torch_port_slice.p
 import dataclasses
 import os
 import pathlib
+import signal
+import subprocess
+import sys
 import tempfile
 
 import numpy as np
@@ -34,6 +37,7 @@ from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autous
 
 SYNTH = TINY_MODEL + ["run.platform=cpu", "run.synthetic_data=true",
                       "run.synthetic_videos=8", "run.print_freq=100"]
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -119,11 +123,15 @@ def test_config_refuses_unported_keys(override, item):
 @pytest.mark.parametrize("override,item", [
     ("model.classifier=linear", 10), ("run.host_devices=4", 12), ("run.multihost=true", 12),
     ("run.platform=tpu", 12), ("run.quantize=int8", 14)])
-def test_cli_refuses_unported_paths(override, item, tmp_path):
-    """Several devices or hosts (item 12) raise, naming their ROADMAP item;
-    the linear head (item 10, ported) trains a stage-1 epoch through the
-    CLI, and int8 serving (item 14a, ported) evaluates: it calibrates,
-    prepares its int8 weights and reports top-1/5 and mAP."""
+def test_cli_refuses_unported_paths(override, item, tmp_path, monkeypatch):
+    """The paths once refused as unported, each ported now: the linear head
+    (item 10) trains a stage-1 epoch through the CLI; int8 serving (item
+    14a) evaluates: it calibrates, prepares its int8 weights and reports
+    top-1/5 and mAP; several devices (item 12) train a stage-1 epoch over
+    four CPU ranks (a process tree of its own, killed after a time limit),
+    rank 0 logging and writing the checkpoints; several hosts (item 12)
+    raise a clear error without a coordinator or torchrun's environment.
+    ``run.platform=tpu`` raises: the port runs on GPUs and the CPU."""
     args = SYNTH + [f"run.ckpt_dir={tmp_path}", override]
     if item == 10:
         from adafocus_torch.models import classifiers as tclassifiers
@@ -137,7 +145,29 @@ def test_cli_refuses_unported_paths(override, item, tmp_path):
         assert set(res) == {"top1", "top5", "mAP"} and 0.0 <= res["mAP"] <= 1.0
         assert "int8 PTQ: prepared" in (tmp_path / "evaluate.log").read_text()
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if override == "run.host_devices=4":
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "adafocus_torch.cli.train", *args, "run.stage=1",
+             "run.epochs=1"], cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+            start_new_session=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            out, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
+        assert proc.returncode == 0, out[-4000:]
+        log = (tmp_path / "training.log").read_text()
+        assert log.count("data-parallel over 4 ranks (gloo)") == 1
+        assert "epoch 0: 2 steps" in log and log.count("checkpoint saved") == 1
+        assert (tmp_path / "checkpoint.pt").exists() and (tmp_path / "model_best.pt").exists()
+        return
+    if override == "run.multihost=true":
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        with pytest.raises(ValueError, match="run.multihost=true: no rendezvous"):
+            ttrain.main(args)
+        return
+    with pytest.raises(NotImplementedError, match="run.platform=tpu"):
         ttrain.main(args)
 
 

@@ -17,7 +17,8 @@ bit. One stage-1 train step at the tiny configuration on the card leaves
 the frozen glancer and policy bit-identical; one stage-2 (PPO) step launches
 the patch kernel twice, leaves everything but the policy bit-identical and
 moves every policy parameter. The policy's sampler draws each class from a
-CUDA generator at its softmax frequency, within 5 sigma.
+CUDA generator at its softmax frequency, within 5 sigma. A stage-1 step over
+a one-rank NCCL group equals the plain step bit for bit.
 
 AdaFocus+ on the card: its top-K picks the CPU's frames among tied scores;
 the patch kernel on frames gathered at K of T indices equals the plain
@@ -207,6 +208,46 @@ def test_cuda_stage1_step_keeps_frozen_components():
     assert not torch.equal(before["focuser.stem.conv.weight"], after["focuser.stem.conv.weight"])
     assert not torch.equal(before["focuser.stem.bn.running_var"],
                            after["focuser.stem.bn.running_var"])
+
+
+@pytest.mark.cuda
+def test_cuda_one_rank_nccl_stage1_step_matches_plain(tmp_path):
+    """A stage-1 step over a one-rank NCCL group, whose averages are
+    identities, equals the plain step on the same weights, batch and
+    actions bit for bit (cuDNN's deterministic algorithms); each launches
+    the patch kernel once."""
+    _needs_gpu()
+    from adafocus_torch.parallel import mesh
+
+    cfg = tgfv.flagship(tiny=True)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, t, s, g = 2, cfg.num_frames, cfg.image_size, cfg.glance_size
+    batch = {"frames": torch.randn((b, t, s, s, 3), generator=gen, device="cuda"),
+             "frames_small": torch.randn((b, t, g, g, 3), generator=gen, device="cuda"),
+             "labels": torch.tensor([1, 4], device="cuda")}
+    actions = torch.rand((b, t, 2), generator=gen, device="cuda")
+    replicas = mesh.init_replicas(f"file://{tmp_path}/rendezvous", 1, 0, "cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = []
+        for group in (None, replicas):
+            state = tstages.create_train_state(cfg, 1, device="cuda",
+                                               generator=torch.Generator().manual_seed(0))
+            step = tstages.make_stage_train_step(state.model, 1, state.optimizer,
+                                                 state.scheduler, group)
+            launches = tpatch.extract_patches.launches
+            metrics = step(batch, None, actions)
+            torch.cuda.synchronize()
+            assert tpatch.extract_patches.launches == launches + 1
+            out.append(({k: float(v) for k, v in metrics.items()}, state.model.state_dict()))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        mesh.shutdown(replicas)
+    (m_plain, sd_plain), (m_group, sd_group) = out
+    assert m_plain == m_group
+    for key, value in sd_plain.items():
+        assert torch.equal(value, sd_group[key]), key
 
 
 @pytest.mark.cuda

@@ -99,7 +99,7 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 def _port_files():
     return sorted((ROOT / "adafocus_torch").rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_patch_times.py",
-                                  "port_videos_per_s.py")]
+                                  "port_videos_per_s.py", "tests/torch_port_parallel_workers.py")]
 
 
 def test_port_imports_no_jax():
@@ -112,7 +112,9 @@ def test_port_imports_no_jax():
                 "adafocus_torch/models/gfv_plus.py", "adafocus_torch/train/stages_plus.py",
                 "adafocus_torch/ops/quant.py", "adafocus_torch/models/quant_inference.py",
                 "adafocus_torch/weights.py", "adafocus_torch/benchmark.py",
-                "adafocus_torch/serving.py", "adafocus_torch/cli/export.py"):
+                "adafocus_torch/serving.py", "adafocus_torch/cli/export.py",
+                "adafocus_torch/parallel/mesh.py", "adafocus_torch/parallel/dryrun.py",
+                "tests/torch_port_parallel_workers.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

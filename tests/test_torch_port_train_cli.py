@@ -148,8 +148,8 @@ def runs(miniact_root):
         run.host_frame_bytes = 0
         return run
 
-    def build_replayed_steps(cfg, state):
-        train, eval_step = build_steps(cfg, state)
+    def build_replayed_steps(cfg, state, replicas=None):
+        train, eval_step = build_steps(cfg, state, replicas)
 
         def step(batch, generator):
             i = counts["step"]
