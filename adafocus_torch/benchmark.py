@@ -18,11 +18,11 @@ import time
 from typing import Callable, Dict, List
 
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from adafocus_torch.models.gfv import GFV, GFVConfig, inference
 from adafocus_torch.models.gfv_plus import inference_plus
 from adafocus_torch.models.gfv_sthsth import inference_sthsth
+from adafocus_torch.ops.flops import gflops_per_video
 
 # the reference's best published GPU throughput: AdaFocus-TSM at 144^2
 # patches, batch 64, on an RTX 2080Ti (BASELINE.md), the one external
@@ -180,17 +180,13 @@ def time_inference(model: GFV, batch: int = 64, inner_iters: int = 10, repeats: 
 
 def inference_gflops_per_video(model: GFV, batch: int = 8,
                                mac_convention: bool = True) -> float:
-    """GFLOPs a video of the deployment forward on the library-conv path,
-    counted by ``torch.utils.flop_counter.FlopCounterMode`` over one forward
-    at ``batch`` videos. The counter sees convolutions and matrix products
-    (2 a multiply-add), not elementwise work, where the JAX package takes
-    XLA's cost analysis of the compiled program. ``mac_convention`` halves
-    the count to the multiply-add = 1 convention of the reference's
-    published numbers."""
+    """GFLOPs a video of the deployment forward on the library-conv path:
+    ``ops.flops.gflops_per_video`` of one forward at ``batch`` videos
+    (convolutions and matrix products, 2 a multiply-add; see ``ops/flops.py``
+    for what it counts and how that differs from the JAX package's XLA
+    count). ``mac_convention`` halves the count to the multiply-add = 1
+    convention of the reference's published numbers."""
     data = make_data(model.cfg, batch, device=model.device)
-    with FlopCounterMode(display=False) as counter:
-        inference_fn(model, "off")(data["frames"], data["frames_small"])
-    flops = float(counter.get_total_flops())
-    if mac_convention:
-        flops /= 2.0
-    return flops / batch / 1e9
+    gflops = gflops_per_video(inference_fn(model, "off"), batch, data["frames"],
+                              data["frames_small"])
+    return gflops / 2.0 if mac_convention else gflops

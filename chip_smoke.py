@@ -206,12 +206,39 @@ Phases, each raising on failure:
      differently), stage 2's against one plain step on the whole B=16
      batch (phase 7's). (c) ``python -m adafocus_torch.parallel.dryrun
      --ranks 1`` and its seconds.
+ 15. the tooling (``utils.torch_weights``, ``utils.profiling``,
+     ``ops.flops``, the ResNet variants), this slice's main path. (a) A
+     torchvision-layout ResNet-50 and MobileNetV2 (tests/torch_ref_models.py,
+     torch only; seeded, random BatchNorm statistics) saved as ``.pth`` and
+     converted by ``python -m adafocus_torch.utils.torch_weights`` in two
+     subprocesses; the port's backbones on the converted weights against the
+     reference modules on theirs, float32 with TF32 off, max|d| / max|ref|
+     <= 1e-4 (ResNet-50 on 64 patches of 96^2, MobileNetV2 on 16 frames of
+     224^2). (b) ``cli.train`` stage 1 warm-started from the converted
+     focuser (phase 9's arguments: flagship width, bf16, B=32, synthetic
+     clips in a device cache; one epoch), with the launch counts set to 0
+     just before: the focuser equal to the converted tensors bit for bit in
+     the state ``main`` builds, before its first step (the 1000-class head
+     keeps its fresh value), one patch launch a step and eval batch. (c)
+     ``utils.profiling.trace`` over three flagship forwards at B=64 through
+     ``inference`` (bf16, cuDNN path) and three through ``inference_q8``
+     (phase 12's scales), the launch counts set to 0 just before; the top 15
+     rows of ``top_ops(group=True)`` of each; the patch kernel's row counts
+     3 launches and, in bf16, its ms is within 10% of phase 5's; the rows
+     sum to ``split_phases``' busy time of the same trace within 2%; the
+     int8 forward's busy time split into ``int8_conv``, ``int8_dwconv``, the
+     quantize passes, the dequantize passes and the rest. (d)
+     ``ops.flops.gflops_per_video`` of the flagship forward equal to
+     ``benchmark.inference_gflops_per_video``. (e) ``resnet18``,
+     ``resnet34``, ``resnet101``, ``resnet152`` and ``wide_resnet101`` over
+     64 patches of 96^2 in bf16 against float32 (TF32 off), 3e-2, and each
+     one's bf16 ms.
 
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
 configuration's results, the bench, the CLI's results, phase 10's,
-phase 11's, phase 12's, phase 13's and phase 14's results and the kernel
+phase 11's, phase 12's, phase 13's, phase 14's and phase 15's results and the kernel
 table (each kernel's launches on every path, its times at the flagship's and
 the matched configuration's shapes; the int8 kernels' at phase 12's unit
 shapes) as JSON lines, then as its last line
@@ -1254,7 +1281,8 @@ def profile_stage2(step, batch, gen, n_steps: int = 3) -> dict:
     ``profiles/trace_stage2.json`` beside this script."""
     from torch.profiler import record_function
 
-    from port_patch_times import PROFILES, _trace, split_phases
+    from adafocus_torch.utils.profiling import load_trace, trace
+    from port_patch_times import PROFILES, split_phases
 
     def run():
         for _ in range(n_steps):
@@ -1274,8 +1302,10 @@ def profile_stage2(step, batch, gen, n_steps: int = 3) -> dict:
 
             step(batch, gen, mark=mark)
 
-    events = _trace(run, os.path.join(PROFILES, "trace_stage2.json"))
-    return split_phases(events, n_steps, STAGE2_PHASES)
+    with trace(PROFILES, "trace_stage2.json"):
+        run()
+    return split_phases(load_trace(os.path.join(PROFILES, "trace_stage2.json")), n_steps,
+                        STAGE2_PHASES)
 
 
 def train_stage2_timed(device, card: str) -> dict:
@@ -1750,7 +1780,8 @@ def profile_cli_batches(cfg, loader, state, device, card: str) -> dict:
 
     from adafocus_torch.cli.common import batch_generator, make_batch_prep
     from adafocus_torch.train.stages import make_stage_train_step
-    from port_patch_times import PROFILES, _trace, split_phases
+    from adafocus_torch.utils.profiling import load_trace, trace
+    from port_patch_times import PROFILES, split_phases
 
     prep = make_batch_prep(cfg, True, device)
     step = make_stage_train_step(state.model, 1, state.optimizer, state.scheduler)
@@ -1767,8 +1798,10 @@ def profile_cli_batches(cfg, loader, state, device, card: str) -> dict:
             with record_function("step"):
                 step(batch, gen)
 
-    out = split_phases(_trace(sequential, os.path.join(PROFILES, "trace_cli_sequential.json")),
-                       n, CLI_PHASES)
+    with trace(PROFILES, "trace_cli_sequential.json"):
+        sequential()
+    out = split_phases(load_trace(os.path.join(PROFILES, "trace_cli_sequential.json")), n,
+                       CLI_PHASES)
     out["batches"] = n
     print(f"CLI loop at B={CLI_B}, profiled over {n} batches in sequence, ms a batch: "
           + "; ".join(f"{name} window {v['window_ms']!r}, busy {v['busy_ms']!r}, idle "
@@ -4035,6 +4068,358 @@ def dp_phase(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15, the tooling (utils.torch_weights, utils.profiling, ops.flops, the
+# ResNet variants), this slice's main path. (a) torchvision-layout ResNet-50
+# and MobileNetV2 (tests/torch_ref_models.py, torch only), seeded with random
+# BatchNorm statistics, saved as .pth and converted by the port's CLI in
+# subprocesses; the port's backbones on the converted weights against the
+# reference modules on their own, float32 with TF32 off: the same arithmetic,
+# only the convolution algorithm free, so CONVERT_REL_TOL. (b) the train CLI's
+# stage 1 warm-started from the converted focuser at the flagship width
+# (phase 9's arguments, one epoch): the focuser bit-exact to the converted
+# tensors before the first step (the ImageNet head, 1000 classes against 200,
+# keeps its fresh value), one patch launch a step and eval batch. (c)
+# utils.profiling.trace and top_ops over TOOL_FORWARDS flagship forwards at
+# B=64 through the serving entry points, bf16 on the cuDNN path and int8 with
+# phase 12's scales, each forward a "forward" range: the patch kernel's row
+# counts TOOL_FORWARDS launches, its ms within PATCH_MS_REL of phase 5's, and
+# the rows' sum within BUSY_REL of split_phases' busy total of the same trace
+# (the same kernels read two ways); for int8 the split of the device's busy
+# time into int8_conv, int8_dwconv, the quantize passes (quantize_act), the
+# dequantize passes (_dequant_frames) and the rest, each in a range of its
+# own. (d) ops.flops.gflops_per_video of the flagship forward against
+# benchmark.inference_gflops_per_video: the same count, equal. (e) each ResNet
+# variant over the focus shape (VARIANT_N patches of 96^2), bf16 against
+# float32 (TF32 off) on the same weights, phase 4's class of limit, and its
+# bf16 ms.
+# ---------------------------------------------------------------------------
+CONVERT_REL_TOL = 1e-4
+CONVERT_SHAPES = {"resnet50": (64, 96), "mobilenet_v2": (16, 224)}   # (N, size)
+CONVERT_TIMEOUT = 300        # seconds for each converter process
+TOOL_FORWARDS = 3
+TOOL_B = 64
+PATCH_MS_REL = 0.10
+BUSY_REL = 0.02
+VARIANTS = ("resnet18", "resnet34", "resnet101", "resnet152", "wide_resnet101")
+VARIANT_N = 64
+VARIANT_REL_TOL = BF16_REL_TOL
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    import torch
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def tool_convert(device, card: str, tmp: str) -> dict:
+    """(a): the converter's CLI on both reference architectures, the port's
+    backbones against the references. Returns (the results, the converted
+    focuser's state dict)."""
+    import torch
+
+    from adafocus_torch.models.mobilenet import MobileNetV2
+    from adafocus_torch.models.resnet import resnet50
+    import importlib.util
+
+    from adafocus_torch.train import checkpoint as ckpt
+
+    # by its path: a package named ``tests`` elsewhere on sys.path may shadow
+    # the repository's test directory
+    spec = importlib.util.spec_from_file_location(
+        "torch_ref_models", os.path.join(ROOT, "tests", "torch_ref_models.py"))
+    ref_models = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref_models)
+    refs = {"resnet50": ref_models.torch_resnet50,
+            "mobilenet_v2": ref_models.torch_mobilenet_v2}
+    ports = {"resnet50": resnet50, "mobilenet_v2": MobileNetV2}
+    gen = torch.Generator().manual_seed(SEED + 150)
+    models, procs, out = {}, {}, {}
+    start = time.perf_counter()
+    for arch, make in refs.items():
+        torch.manual_seed(SEED + 150 + len(arch))
+        models[arch] = _randomize_bn(make(num_classes=1000), gen).eval()
+        pth = os.path.join(tmp, f"{arch}.pth")
+        torch.save(models[arch].state_dict(), pth)
+        procs[arch] = subprocess.Popen(
+            [sys.executable, "-m", "adafocus_torch.utils.torch_weights", pth,
+             os.path.join(tmp, f"{arch}_converted"), "--arch", arch],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for arch, proc in procs.items():
+        log, _ = proc.communicate(timeout=CONVERT_TIMEOUT)
+        if proc.returncode:
+            raise AssertionError(f"converting {arch}: exit {proc.returncode}\n{log}")
+        out[arch] = {"log": log.strip().splitlines()[-1]}
+    convert_s = time.perf_counter() - start
+    with _tf32_off(), torch.inference_mode():
+        for arch, (n, size) in CONVERT_SHAPES.items():
+            tree = ckpt.load_checkpoint(os.path.join(tmp, f"{arch}_converted"))
+            converted = next(iter(tree["components"].values()))
+            port = ports[arch](num_classes=1000)
+            port.load_state_dict(converted)   # strict: every key converted
+            port = port.to(device).eval()
+            ref = models[arch].to(device)
+            x = torch.randn((n, 3, size, size), generator=gen).to(device)
+            want = ref(x)
+            got = port(x) if arch == "resnet50" else port.classify(port.features(x)[1])
+            rel, d = _rel_err(got, want)
+            if not rel <= CONVERT_REL_TOL:
+                raise AssertionError(f"converted {arch}: max|d|/max|ref| {rel!r} > "
+                                     f"{CONVERT_REL_TOL}")
+            out[arch].update(rel_err=rel, max_abs_err=d, n=n, size=size,
+                             component=next(iter(tree["components"])))
+            if arch == "resnet50":
+                focuser = converted
+            print(f"converted {arch} (torchvision layout -> port, the CLI in a subprocess): "
+                  f"logits at N={n} {size}^2 float32, TF32 off, max|d| {d!r}, max|d|/max|ref| "
+                  f"{rel!r} (limit {CONVERT_REL_TOL}) ({card})", flush=True)
+            del port, ref, x, want, got
+    del models
+    torch.cuda.empty_cache()
+    out["convert_s"] = convert_s
+    return out, focuser
+
+
+def tool_warm_start_cli(device, card: str, tmp: str, converted: dict) -> dict:
+    """(b): the train CLI's stage 1 from the converted focuser (phase 9's
+    arguments, one epoch); the focuser checked in the state that ``main``
+    builds, before its first step."""
+    import torch
+
+    from adafocus_torch.cli import train as cli_train
+
+    real_build = cli_train.build_state
+    seen = {}
+
+    def checked_build_state(cfg, *args, **kw):
+        state, start_epoch, best_acc = real_build(cfg, *args, **kw)
+        focuser = state.model.focuser.state_dict()
+        seen["kept"] = sorted(k for k, v in focuser.items()
+                              if k not in converted or converted[k].shape != v.shape)
+        seen["differ"] = sorted(k for k, v in focuser.items() if k in converted
+                                and converted[k].shape == v.shape
+                                and not torch.equal(v.cpu(), converted[k]))
+        return state, start_epoch, best_acc
+
+    n_val = -(-CLI_VIDEOS // CLI_B)
+    args = _cli_args(tmp, "run.stage=1", "run.epochs=1", f"run.ckpt_dir={tmp}/warm_s1",
+                     f"run.warm_start={tmp}/resnet50_converted")
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False   # the CLI's setting
+    cli_train.build_state = checked_build_state
+    try:
+        torch.cuda.synchronize()
+        _launch_counts(reset=True)
+        res = _run_cli(cli_train.main, args, os.path.join(tmp, "warm_cli.log"))
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+    finally:
+        cli_train.build_state = real_build
+        torch.backends.cudnn.benchmark = autotune
+    if seen.get("differ") or seen.get("kept") != ["fc.bias", "fc.weight"]:
+        raise AssertionError(f"warm start from the converted focuser: differing {seen}")
+    steps = sum(e["steps"] for e in res["epochs"])
+    want = steps + n_val
+    if launches != {"extract_patches": want, "fused_inverted_residual": 0,
+                    "fused_bottleneck": 0} or not math.isfinite(res["best_acc"]):
+        raise AssertionError(f"warm-started CLI stage 1: launches {launches}, want {want} patch "
+                             f"launches ({steps} steps, {n_val} eval batches); {res['best_acc']}")
+    out = {"epochs": res["epochs"], "launches": launches, "best_acc": res["best_acc"],
+           "steps": steps, "eval_batches": n_val, "kept_fresh": seen["kept"]}
+    print(f"CLI stage 1 bf16 B={CLI_B} warm-started from the converted ResNet-50: the focuser "
+          f"bit-exact to the converted tensors before the first step (kept fresh: "
+          f"{seen['kept']}); patch launches {launches['extract_patches']} ({steps} steps, "
+          f"{n_val} eval batches); videos/s {[e['videos_per_s'] for e in res['epochs']]!r} "
+          f"({card})", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_split(events: list, rows: list) -> dict:
+    """The int8 forward's device busy time by kind, ms a forward: the two
+    int8 kernels (by name), the quantize and dequantize passes (kernels
+    launched inside their ranges) and the rest."""
+    from port_patch_times import split_phases
+
+    total = sum(r[1] for r in rows)
+    conv = sum(r[1] for r in rows if re.search(r"\bconv_kernel\b", r[0]))
+    dw = sum(r[1] for r in rows if re.search(r"\bdwconv_kernel\b", r[0]))
+    passes = split_phases(events, 1, ("quantize", "dequantize"))
+    split = {"int8_conv": conv, "int8_dwconv": dw, "quantize": passes["quantize"]["busy_ms"],
+             "dequantize": passes["dequantize"]["busy_ms"]}
+    split["rest"] = total - sum(split.values())
+    return {k: {"ms": v / TOOL_FORWARDS, "share_of_busy": v / total} for k, v in split.items()}
+
+
+def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> dict:
+    """(c) and (d) on the bf16 flagship (the weights of phases 4, 5 and 12)."""
+    import torch
+    from torch.profiler import record_function
+
+    from adafocus_torch.benchmark import inference_fn, inference_gflops_per_video, make_data
+    from adafocus_torch.models import quant_inference as qi
+    from adafocus_torch.models.gfv import GFV, flagship, inference
+    from adafocus_torch.ops import flops
+    from adafocus_torch.ops.quant import quantize_frames
+    from adafocus_torch.utils.profiling import load_trace, top_ops, trace
+    from port_patch_times import flagship_inputs, split_phases
+
+    model = GFV(flagship(), device=device, generator=torch.Generator().manual_seed(SEED))
+    frames, small = flagship_inputs(model, device, TOOL_B)
+    fq, sq = (quantize_frames(t.bfloat16()) for t in _q8_inputs(model.cfg, TOOL_B, SEED + 130,
+                                                                  device))
+    qw = qi.prepare_q8(model, q8_scales)
+    forwards = {"bf16": lambda: inference(model, frames, small, device=device),
+                "int8": lambda: qi.inference_q8(model, q8_scales, fq, sq, device=device, qw=qw)}
+    real = qi.quantize_act, qi._dequant_frames
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    out = {}
+    autotune = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True   # the serving bench's setting, as phase 5
+    try:
+        for mode, fn in forwards.items():
+            fn()   # warm-up: cuDNN's algorithm search
+            log_dir = os.path.join(tmp, f"profile_{mode}")
+            qi.quantize_act, qi._dequant_frames = (ranged("quantize", real[0]),
+                                                   ranged("dequantize", real[1]))
+            _q8_counts(reset=True)
+            try:
+                with trace(log_dir):
+                    for _ in range(TOOL_FORWARDS):
+                        with record_function("forward"):
+                            fn()
+            finally:
+                qi.quantize_act, qi._dequant_frames = real
+            launches = _q8_counts()
+            rows = top_ops(log_dir, n=10**9, group=True)
+            events = load_trace(log_dir)
+            busy = split_phases(events, TOOL_FORWARDS, ("forward",))["forward"]["busy_ms"]
+            total = sum(r[1] for r in rows)
+            patch = [r for r in rows if "patch_kernel" in r[0]]
+            res = {"top15": [list(r) for r in rows[:15]], "rows": len(rows),
+                   "busy_ms_per_forward": total / TOOL_FORWARDS,
+                   "split_phases_busy_ms_per_forward": busy, "launches": launches,
+                   "patch_kernel": {"count": sum(r[2] for r in patch),
+                                    "ms_per_forward": sum(r[1] for r in patch) / TOOL_FORWARDS}}
+            want = {"extract_patches": TOOL_FORWARDS, "fused_inverted_residual": 0,
+                    "fused_bottleneck": 0,
+                    "int8_conv": TOOL_FORWARDS * Q8_LAUNCHES["int8_conv"] if mode == "int8" else 0,
+                    "int8_dwconv": TOOL_FORWARDS * Q8_LAUNCHES["int8_dwconv"]
+                    if mode == "int8" else 0}
+            if launches != want or res["patch_kernel"]["count"] != TOOL_FORWARDS:
+                raise AssertionError(f"profiled {mode} forwards: launches {launches}, want {want};"
+                                     f" patch rows {patch}")
+            if not abs(total / TOOL_FORWARDS - busy) <= BUSY_REL * busy:
+                raise AssertionError(f"profiled {mode} forwards: top_ops' sum {total!r} ms over "
+                                     f"{TOOL_FORWARDS} forwards against split_phases' busy "
+                                     f"{busy!r} ms a forward")
+            if mode == "bf16":
+                got = res["patch_kernel"]["ms_per_forward"]
+                res["phase5_patch_kernel_ms"] = patch_ms
+                if not abs(got - patch_ms) <= PATCH_MS_REL * patch_ms:
+                    raise AssertionError(f"profiled patch kernel {got!r} ms a forward, phase 5's "
+                                         f"{patch_ms!r}")
+            else:
+                res["split"] = _int8_split(events, rows)
+            out[mode] = res
+            print(f"profile, {TOOL_FORWARDS} flagship {mode} forwards at B={TOOL_B} "
+                  f"(utils.profiling.top_ops, grouped), ms over the {TOOL_FORWARDS}, top 15: "
+                  + "; ".join(f"{name[:90]} {ms!r} ({n})" for name, ms, n in rows[:15])
+                  + f". Device busy {total / TOOL_FORWARDS!r} ms a forward (split_phases "
+                  f"{busy!r}); patch kernel {res['patch_kernel']} ({card})", flush=True)
+            if mode == "int8":
+                print("int8 forward's device busy time, ms a forward (share): " + "; ".join(
+                    f"{k} {v['ms']!r} ({v['share_of_busy']!r})" for k, v in res["split"].items())
+                    + f" ({card})", flush=True)
+    finally:
+        torch.backends.cudnn.benchmark = autotune
+    del frames, small, fq, sq, qw
+    data = make_data(model.cfg, 8, device=device)
+    counted = flops.gflops_per_video(inference_fn(model, "off"), 8, data["frames"],
+                                     data["frames_small"])
+    bench = inference_gflops_per_video(model, 8, mac_convention=False)
+    if counted != bench:
+        raise AssertionError(f"ops.flops {counted!r} GFLOPs a video, benchmark {bench!r}")
+    out["gflops_per_video"] = {"ops.flops": counted, "benchmark": bench,
+                               "mac_convention": inference_gflops_per_video(model, 8)}
+    print(f"flagship GFLOPs a video (2 a multiply-add): ops.flops.gflops_per_video {counted!r}, "
+          f"benchmark.inference_gflops_per_video {bench!r}; multiply-add = 1: "
+          f"{out['gflops_per_video']['mac_convention']!r}", flush=True)
+    del model, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def tool_variants(device, card: str) -> dict:
+    """(e): each variant's pooled features in bf16 against float32 and its
+    bf16 ms, at the focus shape, timed with cuDNN's autotuner off and then
+    on (what an earlier phase left would otherwise decide the
+    algorithms)."""
+    import torch
+
+    from adafocus_torch.models import resnet
+
+    gen = torch.Generator().manual_seed(SEED + 151)
+    x32 = torch.randn((VARIANT_N, 3, 96, 96), generator=gen).to(device)
+    x16 = x32.bfloat16()
+    out = {}
+    autotune = torch.backends.cudnn.benchmark
+    with _tf32_off(), torch.inference_mode():
+        for i, name in enumerate(VARIANTS):
+            torch.manual_seed(SEED + 151 + i)
+            m32 = _randomize_bn(getattr(resnet, name)(num_classes=1000), gen).to(device).eval()
+            m16 = copy.deepcopy(m32).bfloat16()
+            want = m32.features(x32)[1]
+            got = m16.features(x16)[1]
+            rel, d = _rel_err(got, want)
+            if not rel <= VARIANT_REL_TOL:
+                raise AssertionError(f"{name}: bf16 against float32 {rel!r} > {VARIANT_REL_TOL}")
+            ms = {}
+            for tune in (False, True):
+                torch.backends.cudnn.benchmark = tune
+                ms[f"autotuner_{'on' if tune else 'off'}"] = _time_ms(
+                    lambda: m16.features(x16), iters=10, warmup=3)
+            out[name] = {"rel_err": rel, "max_abs_err": d, "bf16_ms": ms,
+                         "params": sum(p.numel() for p in m32.parameters()),
+                         "feature_dim": m32.feature_dim}
+            del m32, m16, want, got
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = autotune
+    print(f"ResNet variants over {VARIANT_N} patches of 96^2: " + "; ".join(
+        f"{k} bf16 ms {json.dumps(v['bf16_ms'])}, bf16 vs float32 {v['rel_err']!r}"
+        for k, v in out.items())
+        + f" (limit {VARIANT_REL_TOL}) ({card})", flush=True)
+    return out
+
+
+def tool_phase(device, card: str, q8_scales, patch_ms: float) -> dict:
+    """Phase 15: (a) to (e); each raises on failure."""
+    import tempfile
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        convert, converted = tool_convert(device, card, tmp)
+        out = {"convert": convert,
+               "cli": tool_warm_start_cli(device, card, tmp, converted)}
+        out["profiles"] = tool_profiles(device, card, tmp, q8_scales, patch_ms)
+    out["variants"] = tool_variants(device, card)
+    out["seconds"] = time.perf_counter() - start
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4153,10 +4538,13 @@ def main() -> int:
     done("phase 11")
     q8 = q8_phase(device, card)
     done(f"phase 12 ({q8['seconds']:.1f} s)")
-    export = export_phase(device, card, q8.pop("flagship_scales"))
+    q8_scales = q8.pop("flagship_scales")
+    export = export_phase(device, card, q8_scales)
     done(f"phase 13 ({export['seconds']:.1f} s)")
     dp = dp_phase(device, card)
     done(f"phase 14 ({dp['seconds']:.1f} s)")
+    tools = tool_phase(device, card, q8_scales, ext["patch_kernel_ms"])
+    done(f"phase 15 ({tools['seconds']:.1f} s)")
     # each kernel's count from the run of this slice's main path (phase 14,
     # the patch kernel; below), for the int8 kernels phase 13's and for the
     # blocks the matched sth-sth forward's fused path; the counts of the
@@ -4165,7 +4553,13 @@ def main() -> int:
     sth_cli = sthsth["cli"]
     n_sth_val = -(-STH_CLI_VIDEOS // STH_CLI_B)
     n_plus_val = -(-PLUS_CLI_VIDEOS // PLUS_CLI_B)
-    paths = {**{f"data-parallel stage {st}": c for st, c in dp["one_rank"]["launches"].items()},
+    tool_cli = tools["cli"]
+    paths = {f"CLI train stage 1 warm-started from a converted ResNet-50, {tool_cli['steps']} "
+             f"steps and {tool_cli['eval_batches']} eval batches": tool_cli["launches"],
+             **{f"flagship {mode} inference, {TOOL_FORWARDS} forwards under the profiler":
+                v["launches"] for mode, v in tools["profiles"].items()
+                if mode in ("bf16", "int8")},
+             **{f"data-parallel stage {st}": c for st, c in dp["one_rank"]["launches"].items()},
              **{f"CLI AdaFocus+ train stage {st}, {sum(e['steps'] for e in v['epochs'])} steps "
                 f"and {n_plus_val} eval batches": v["launches"]
                 for st, v in plus["cli"]["stages"].items()},
@@ -4231,7 +4625,12 @@ def main() -> int:
         row["custom_op"] = ops.get(row["name"])
         if row["name"] in ops:
             row["launches"] = export["artifacts"]["flagship int8"]["launches"][row["name"]]
-    rows[0]["launches"] = sum(c["extract_patches"] for c in dp["one_rank"]["launches"].values())
+    # this slice's main path, phase 15: the patch kernel's count from the
+    # warm-started CLI run, the int8 kernels' from the profiled int8 forwards
+    rows[0]["launches"] = tool_cli["launches"]["extract_patches"]
+    for row in rows:
+        if row["name"] in ("int8_conv", "int8_dwconv"):
+            row["launches"] = tools["profiles"]["int8"]["launches"][row["name"]]
     # a path's count of a kernel it was not counted for (the int8 kernels
     # before phase 12) is None
     for row in rows:
@@ -4250,6 +4649,7 @@ def main() -> int:
     print(json.dumps({"int8": {k: v for k, v in q8.items() if k != "kernel_rows"}}), flush=True)
     print(json.dumps({"export": export}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
+    print(json.dumps({"tooling": tools}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,12 @@ Prints ONE JSON line:
   prepared before the timed runs): videos/s of the flagship, of the matched
   configuration and of AdaFocus+ at ``plus_cfg((96, 8))`` (beside its bf16
   rate, which the lines above do not give), and the flagship's batch-1
-  latency.
+  latency;
+- ``uncontended``: False when a live holder of the device lock
+  (``adafocus_torch.utils.device_lock``, a training run on the same card)
+  outlived the wait before the timing (``ADAFOCUS_BENCH_WAIT_SECS``,
+  default 1800 s), so the numbers may be contended. ``bench()``, which
+  ``chip_smoke.py`` calls in process, does not wait.
 
 Each rate is the best of ``BENCH_REPEATS`` (3) runs of ``BENCH_ITERS`` (10)
 forwards at ``BENCH_BATCH`` (64) videos, timed by CUDA events after warm-up
@@ -112,11 +117,16 @@ def main() -> int:
         print("port_bench: no CUDA device is visible", file=sys.stderr)
         return 1
     from adafocus_torch.ops import _kernels
+    from adafocus_torch.utils.device_lock import wait_for_device
 
+    # never time against a training run on the same card: wait for a live
+    # holder of the device lock, bounded by ADAFOCUS_BENCH_WAIT_SECS
+    uncontended = wait_for_device()
     _kernels.build()
     out = bench(torch.device("cuda"), int(os.environ.get("BENCH_BATCH", "64")),
                 int(os.environ.get("BENCH_ITERS", "10")),
                 int(os.environ.get("BENCH_REPEATS", "3")))
+    out["uncontended"] = uncontended
     print(json.dumps(out), flush=True)
     return 0
 

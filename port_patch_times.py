@@ -66,30 +66,6 @@ def events_us(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) * 1e3 / iters
 
 
-def _trace(fn, path: str) -> list:
-    """Runs ``fn`` under ``torch.profiler`` (CPU and CUDA) and returns the
-    events of its Chrome trace, written to ``path`` (the CPU side's ranges
-    and the launches' correlation ids are read from there)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        return json.load(f)["traceEvents"]
-
-
-def _device_events(events: list) -> list:
-    """Kernels, copies and memsets on the device, by start time."""
-    cats = ("kernel", "gpu_memcpy", "gpu_memset")
-    return sorted((e for e in events if e.get("ph") == "X" and e.get("cat") in cats),
-                  key=lambda e: e["ts"])
-
-
 def device_us(fn, iters: int = 20):
     """Mean device time of ``fn`` in us: the durations of the kernels,
     copies and memsets that the profiler saw on the device over ``iters``
@@ -177,6 +153,7 @@ def profile_phases(model, frames, small, n_forwards: int = 3,
     from torch.profiler import record_function
 
     from adafocus_torch.models.gfv import extract_for_frames, fuse_and_classify
+    from adafocus_torch.utils.profiling import load_trace, trace
 
     cfg = model.cfg
     b, t = frames.shape[:2]
@@ -197,14 +174,19 @@ def profile_phases(model, frames, small, n_forwards: int = 3,
                     fuse_and_classify(model, pooled, local)
 
     run(1)   # warm-up: cuDNN's algorithm search, the kernel's build and caches
-    events = _trace(lambda: run(n_forwards), path)
-    return split_phases(events, n_forwards)
+    with trace(os.path.dirname(path), os.path.basename(path)):
+        run(n_forwards)
+    return split_phases(load_trace(path), n_forwards)
 
 
 def split_phases(events: list, n_runs: int, phases: tuple = PHASES) -> dict:
     """Device busy and idle time of each phase of ``phases`` annotated in
     the trace, means over ``n_runs`` runs (see ``profile_phases``); the
-    whole run's window, idle time and idle share under ``"total"``."""
+    whole run's window, idle time and idle share under ``"total"``.
+    ``events``: a trace's, as ``adafocus_torch.utils.profiling.load_trace``
+    reads them."""
+    from adafocus_torch.utils.profiling import device_events
+
     launch_ts = {}
     for e in events:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
@@ -218,7 +200,7 @@ def split_phases(events: list, n_runs: int, phases: tuple = PHASES) -> dict:
                 return i
         return None
 
-    dev = _device_events(events)
+    dev = device_events(events)
     owner, prev = [], None
     for e in dev:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))

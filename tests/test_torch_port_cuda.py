@@ -39,6 +39,11 @@ patch kernel once a forward (int8: also 86 ``int8_conv`` and 17
 ``int8_dwconv``, no fused block) and serves the eager forward's logits
 (max|d| / max|eager| <= 1e-5; the same ops run).
 
+The tooling: each ResNet variant over 4 patches of 96^2 in bf16 against
+float32 (TF32 off) within 3e-2; ``utils.profiling.trace`` around a tiny
+forward on the card, ``top_ops`` showing the patch kernel once and summing
+to the trace's device events.
+
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
 whose rounding flips moves by one bf16 ulp). Their cases cover the bf16
@@ -766,3 +771,61 @@ def test_cuda_export_reload_launches(mode, tmp_path):
     else:
         want = inference_fn(model)(frames, small)
     assert _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet18", "resnet34", "resnet101", "resnet152",
+                                  "wide_resnet101"])
+def test_cuda_resnet_variant_bf16_matches_float32(name):
+    """Each ResNet variant over 4 patches of 96^2 in bf16 against float32
+    (TF32 off) on the same weights and random BatchNorm statistics, within
+    chip_smoke.py phase 4's 3e-2 (max|d| / max|float32| of the pooled
+    features)."""
+    import copy
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(15)
+    torch.manual_seed(15)
+    m32 = getattr(tres, name)(num_classes=10)
+    for m in m32.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            for t, lo, hi in ((m.weight, 0.5, 1.5), (m.bias, -0.5, 0.5),
+                              (m.running_mean, -0.5, 0.5), (m.running_var, 0.5, 1.5)):
+                t.data.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
+    m32 = m32.cuda().eval()
+    m16 = copy.deepcopy(m32).bfloat16()
+    x = torch.randn((4, 3, 96, 96), generator=gen).cuda()
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = m32.features(x)[1]
+            got = m16.features(x.bfloat16())[1]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.shape == (4, m32.feature_dim)
+    assert _rel_err(got, want) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_cuda_profiler_attributes_the_patch_kernel(tmp_path):
+    """``utils.profiling.trace`` around one tiny forward on the card:
+    ``top_ops`` shows the patch kernel once, and its rows sum to the
+    device events that ``load_trace`` reads."""
+    from adafocus_torch.benchmark import inference_fn, make_data
+    from adafocus_torch.utils import profiling
+
+    _needs_gpu()
+    cfg = tgfv.flagship(tiny=True)
+    model = tgfv.GFV(cfg, device="cuda")
+    data = make_data(cfg, 2, device="cuda", seed=37)
+    fn = inference_fn(model)
+    fn(data["frames"], data["frames_small"])   # warm-up
+    with profiling.trace(str(tmp_path)):
+        fn(data["frames"], data["frames_small"])
+    rows = profiling.top_ops(str(tmp_path), n=10**6)
+    patch = [r for r in rows if "patch_kernel" in r[0]]
+    assert sum(r[2] for r in patch) == 1 and patch[0][1] > 0
+    events = profiling.device_events(profiling.load_trace(str(tmp_path)))
+    assert sum(r[2] for r in rows) == len(events)
+    assert sum(r[1] for r in rows) == pytest.approx(sum(e["dur"] for e in events) / 1e3)

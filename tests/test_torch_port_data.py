@@ -15,6 +15,8 @@
 
 import dataclasses
 import os
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -113,6 +115,60 @@ def _clear_memos(root: str) -> None:
             os.remove(os.path.join(frames, name))
 
 
+# seconds to wait for the JAX package's native library to become loadable
+NATIVE_WAIT_S = 120.0
+
+
+def wait_loadable(native, timeout_s: float = NATIVE_WAIT_S, poll_s: float = 0.5) -> bool:
+    """``native.available()``, retried until the library loads or
+    ``timeout_s`` passes. The JAX package builds ``native/libframeloader.so``
+    with an in-place ``make`` (adafocus_tpu/data/native.py:32-43): while
+    another process (a worker running tests/test_native.py) links it, the
+    file exists but is partial, ``ctypes.CDLL`` fails, and ``load_library``
+    memoises the failure (``_tried``) for the whole process. So the memo is
+    reset (under the module's lock) before each retry."""
+    deadline = time.monotonic() + timeout_s
+    while not native.available():
+        if time.monotonic() >= deadline:
+            return False
+        time.sleep(poll_s)
+        with native._lock:
+            native._tried = False
+    return True
+
+
+class _FlakyNative:
+    """A stand-in for adafocus_tpu/data/native.py whose library fails to
+    load ``failures`` times (memoised, as the real module memoises it), then
+    loads."""
+
+    def __init__(self, failures: int):
+        self._lock = threading.Lock()
+        self._tried = False
+        self.failures = failures
+        self.attempts = 0
+        self._lib = None
+
+    def available(self) -> bool:
+        with self._lock:
+            if self._lib is None and not self._tried:
+                self._tried = True
+                self.attempts += 1
+                if self.attempts > self.failures:
+                    self._lib = object()
+            return self._lib is not None
+
+
+def test_wait_loadable_retries_a_memoised_failure():
+    flaky = _FlakyNative(failures=2)
+    assert wait_loadable(flaky, timeout_s=10.0, poll_s=0.01)
+    assert flaky.attempts == 3 and flaky.available()
+    never = _FlakyNative(failures=10**9)
+    t0 = time.monotonic()
+    assert not wait_loadable(never, timeout_s=0.2, poll_s=0.01)
+    assert 0.2 <= time.monotonic() - t0 < 5.0 and never.attempts > 2
+
+
 def _assert_same_batches(jloader, tloader, epochs=(0, 1)):
     n = 0
     for epoch in epochs:
@@ -154,7 +210,7 @@ def test_loader_batches_identical(miniact_root, source, mode, cache):
         native = source == "native"
         if native:
             assert tnative.available(), tnative.describe()
-            assert jnative.available()
+            assert wait_loadable(jnative)
         jsrc = jpipe.FrameFolderSource(frames, use_native=native)
         tsrc = tpipe.FrameFolderSource(frames, use_native=native)
         assert (tsrc._native is not None) == native

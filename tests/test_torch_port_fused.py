@@ -35,6 +35,7 @@ from adafocus_tpu.models import resnet as jres
 from adafocus_tpu.models.gfv import GFV, inference
 from adafocus_tpu.ops import fused_blocks as jfb
 from adafocus_tpu.ops.patch import pad_for_extraction
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import TINY, jax_variables, port_model, randomize_bn
 
 BLOCK_TOL = dict(atol=2e-5, rtol=1e-5)

@@ -29,6 +29,7 @@ from adafocus_torch.models import gfv as tgfv
 from adafocus_tpu.models.gfv import GFV, glance_policy_actions, inference
 from adafocus_tpu.models.gfv import inference_with_actions
 from adafocus_tpu.ops.patch import pad_for_extraction
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import FLAGSHIP_WIDTH, TINY, jax_variables, port_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -114,6 +115,8 @@ def test_port_imports_no_jax():
                 "adafocus_torch/weights.py", "adafocus_torch/benchmark.py",
                 "adafocus_torch/serving.py", "adafocus_torch/cli/export.py",
                 "adafocus_torch/parallel/mesh.py", "adafocus_torch/parallel/dryrun.py",
+                "adafocus_torch/utils/torch_weights.py", "adafocus_torch/utils/profiling.py",
+                "adafocus_torch/utils/device_lock.py", "adafocus_torch/ops/flops.py",
                 "tests/torch_port_parallel_workers.py"):
         assert sub in checked, sub
     for path in _port_files():

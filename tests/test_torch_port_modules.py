@@ -23,6 +23,7 @@ from adafocus_tpu.models.gru import GRUCell
 from adafocus_tpu.models.mobilenet import MobileNetV2
 from adafocus_tpu.models.policy import ActorCritic
 from adafocus_tpu.models.resnet import resnet50
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import FLAGSHIP_WIDTH as CFG
 from tests.torch_port_common import jax_variables, port_model
 

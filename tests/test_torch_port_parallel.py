@@ -70,6 +70,7 @@ from adafocus_tpu.train import stages as jstages
 from adafocus_tpu.train import stages_plus as jsplus
 from adafocus_tpu.train import stages_sthsth as jss
 from tests import torch_port_parallel_workers as workers
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_plus_train import TINY_PLUS
 from tests.test_torch_port_sthsth import STH
 from tests.test_torch_port_sthsth_train import _batch as sthsth_batch

@@ -31,7 +31,7 @@ import sys
 import pytest
 import torch
 
-from tests.test_torch_port_data import TINY_MODEL
+from tests.test_torch_port_data import TINY_MODEL, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 400

@@ -19,6 +19,7 @@ from adafocus_torch.models import policy as tpolicy
 from adafocus_torch.ops import patch as tpatch
 from adafocus_tpu.models import policy as jpolicy
 from adafocus_tpu.ops import patch as jpatch
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.mark.parametrize("k", [4, 16, 25, 36, 49, 64, 81, 100])

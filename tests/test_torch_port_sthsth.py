@@ -49,6 +49,7 @@ from adafocus_tpu.models.gfv import GFV, GFVConfig
 from adafocus_tpu.models.tsm import temporal_shift as j_shift
 from adafocus_tpu.ops import fused_blocks as jfb
 from adafocus_tpu.ops.patch import pad_for_extraction, patch_offsets
+from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import jax_variables, port_model, randomize_bn
 
 BACKBONE_TOL = dict(atol=5e-4, rtol=1e-4)
