@@ -18,10 +18,23 @@ each unit input's abs-max; with a scales dict it runs int8.
 ``calibrate_*`` take the maximum over batches on the host, one copy from
 the device a batch.
 
+Each int8 unit requantizes in its kernel's epilogue, as XLA fuses it for
+the JAX package (``ops.quant.int8_unit``): a producer writes its output's
+int8 codes at its consumer's scale, and writes the compute-dtype values
+only where something still reads them (the residual carry, the ResNet block
+output its ``down`` unit and the next block's residual read, the head
+conv's map); the residual add (and ResNet's ReLU after it) happens in the
+epilogue of the block's last unit. A unit that reads a tensor no int8
+kernel produced (the stems' outputs, ResNet's max-pool output, the block
+inputs of the four ``down`` units) quantizes it on load. Under TSM the
+int8 codes are shifted: the shift moves values and fills zeros, and a zero
+quantizes to code 0, so shift and quantize commute exactly. The codes are
+those of JAX's unfused ``quantize_act`` bit for bit; no ``quantize_act``
+runs inside an int8 backbone.
+
 Frames may arrive in the int8 transport format (``ops.quant.FRAME_SCALE``):
 the patch kernel crops them at one byte a value, and they are dequantized
-into the compute dtype before each stem. Inter-unit activations stay in the
-compute dtype, as in the JAX package.
+into the compute dtype before each stem.
 
 Numbers. The port's serving ``GFV`` holds bf16 parameters, so ``fold_bn``
 folds weights already rounded to bf16 where the JAX package folds from
@@ -41,7 +54,7 @@ weights and one set of scales.
 from __future__ import annotations
 
 import types
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Callable, Dict, Iterable, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
@@ -60,12 +73,28 @@ from adafocus_torch.models.policy import sample_rollout
 from adafocus_torch.models.tsm import temporal_shift
 from adafocus_torch.ops.fused_blocks import fold_bn
 from adafocus_torch.ops.quant import (
-    FRAME_SCALE, QConv, act_scale_from_absmax, int8_conv, int8_dense, prepare_qconv,
+    FRAME_SCALE, QConv, act_scale_from_absmax, int8_conv, int8_dense, int8_unit, prepare_qconv,
     quantize_act, quantize_weight,
 )
 
 Scales = Dict[str, Dict[str, torch.Tensor]]
 _ACT_NAMES = {None: None, F.relu: "relu", F.relu6: "relu6"}
+
+
+# Called with (unit name, int8 codes) for each int8 backbone unit's input
+# codes, in the order the units run, when set: a test's view of the codes
+# that the fused path produces (an input quantized on load is quantized
+# once more for it, as the kernel quantizes it).
+code_tap: Optional[Callable[[str, torch.Tensor], None]] = None
+
+
+class Act(NamedTuple):
+    """A unit's output as the next units read it: ``y`` in the compute
+    dtype, ``q`` its int8 codes at the scale of the unit that reads them;
+    either may be absent (calibration and the stems carry ``y`` only)."""
+
+    y: Optional[torch.Tensor] = None
+    q: Optional[torch.Tensor] = None
 
 
 class _UnitRunner:
@@ -84,54 +113,124 @@ class _UnitRunner:
         self.qw = qw
         self.absmax: Dict[str, torch.Tensor] = {}
 
-    def __call__(self, name: str, x: torch.Tensor, unit) -> torch.Tensor:
-        """x (N, H, W, C) -> (N, H', W', C') in the compute dtype."""
+    def __call__(self, name: str, x: Act, unit, to: Optional[str] = None, keep: bool = False,
+                 residual: Optional[Act] = None, res_relu: bool = False) -> Act:
+        """One unit on x, (N, H, W, C) -> (N, H', W', C'). ``to``: the unit
+        that reads the output's int8 codes (written at its scale); ``keep``:
+        the compute-dtype output too (always without ``to``); ``residual``:
+        added to the output in float32, rounded once to the compute dtype,
+        ReLU after the add with ``res_relu``."""
         if self.scales is None or name not in self.scales:
             if self.scales is None:
-                self.absmax[name] = x.float().abs().amax()
-            return _conv_bn(x, unit, self.dtype)
+                self.absmax[name] = x.y.float().abs().amax()
+            y = _conv_bn(x.y, unit, self.dtype)
+            if residual is not None:
+                y = y + residual.y
+                if res_relu:
+                    y = y.relu_()
+            return Act(y)
         groups = unit.conv.groups
+        qc = self._qconv(name, unit)
+        if code_tap is not None:
+            code_tap(name, x.q if x.q is not None else quantize_act(x.y, qc.x_scale))
+        out_scale = None if to is None else self.scales.get(to)
+        y, q = int8_unit(x.q if x.q is not None else x.y, qc, unit.conv.stride[0], groups,
+                         _ACT_NAMES[unit.act], self.dtype, out_scale=out_scale,
+                         keep=keep or out_scale is None,
+                         residual=None if residual is None else residual.y, res_relu=res_relu)
+        return Act(y, q)
+
+    def _qconv(self, name: str, unit) -> QConv:
+        """The unit's prepared ``QConv``, from ``qw`` where it holds it."""
         qc = None if self.qw is None else self.qw.get(name)
         if qc is None:
             kernel, bias = fold_bn(unit)
             kq, ws = quantize_weight(kernel)
-            qc = prepare_qconv(QConv(kq, ws, bias, self.scales[name]), depthwise=groups > 1)
+            qc = prepare_qconv(QConv(kq, ws, bias, self.scales[name]),
+                               depthwise=unit.conv.groups > 1)
             if self.qw is not None:
                 self.qw[name] = qc
-        return int8_conv(quantize_act(x, qc.x_scale), qc, unit.conv.stride[0], groups,
-                         act=_ACT_NAMES[unit.act], out_dtype=self.dtype)
+        return qc
+
+    def shift(self, x: Act, n_frames: int) -> Act:
+        """``temporal_shift`` of what the next unit reads: the int8 codes
+        where there are, else the compute-dtype values."""
+        if x.q is not None:
+            return Act(q=temporal_shift(x.q, n_frames))
+        return Act(temporal_shift(x.y, n_frames))
+
+
+class _UnfusedRunner(_UnitRunner):
+    """JAX's unfused composition of an int8 backbone, the order of
+    operations that the fused epilogues must reproduce (for checks): every
+    int8 unit's input quantized by ``quantize_act`` (each unit's codes
+    recorded in ``codes``), its output in the compute dtype, the residual
+    added apart; the stems as ``_UnitRunner`` runs them."""
+
+    def __init__(self, scales: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                 qw: Optional[dict] = None):
+        super().__init__(scales, dtype, qw)
+        self.codes: List[Tuple[str, torch.Tensor]] = []
+
+    def __call__(self, name: str, x: Act, unit, to: Optional[str] = None, keep: bool = False,
+                 residual: Optional[Act] = None, res_relu: bool = False) -> Act:
+        if name not in self.scales:
+            return super().__call__(name, x, unit, residual=residual, res_relu=res_relu)
+        qc = self._qconv(name, unit)
+        codes = quantize_act(x.y, qc.x_scale)
+        self.codes.append((name, codes))
+        y = int8_conv(codes, qc, unit.conv.stride[0], unit.conv.groups, _ACT_NAMES[unit.act],
+                      self.dtype)
+        if residual is not None:
+            y = y + residual.y
+            if res_relu:
+                y = y.relu_()
+        return Act(y)
 
 
 def _mbv2_backbone(glancer, x: torch.Tensor, runner: _UnitRunner, n_frames: int = 0):
-    h = runner("stem", x, glancer.stem)
-    for name in glancer.block_names:
-        block = getattr(glancer, name)
+    h = runner("stem", Act(x), glancer.stem)
+    names = glancer.block_names
+    blocks = [getattr(glancer, name) for name in names]
+    for i, (name, block) in enumerate(zip(names, blocks)):
+        nxt = blocks[i + 1] if i + 1 < len(blocks) else None
+        to = ("head_conv" if nxt is None
+              else f"{names[i + 1]}/{'dw' if nxt.expand is None else 'expand'}")
         b = h
         if block.use_res and n_frames > 0:
-            b = temporal_shift(b, n_frames)
+            b = runner.shift(b, n_frames)
         if block.expand is not None:
-            b = runner(f"{name}/expand", b, block.expand)
-        b = runner(f"{name}/dw", b, block.dw)
-        b = runner(f"{name}/project", b, block.project)
-        h = h + b if block.use_res else b
-    fmap = runner("head_conv", h, glancer.head_conv)
+            b = runner(f"{name}/expand", b, block.expand, to=f"{name}/dw")
+        b = runner(f"{name}/dw", b, block.dw, to=f"{name}/project")
+        # h + b, the next block's residual kept in the compute dtype
+        h = runner(f"{name}/project", b, block.project, to=to,
+                   keep=nxt is not None and nxt.use_res,
+                   residual=h if block.use_res else None)
+    fmap = runner("head_conv", h, glancer.head_conv).y
     return fmap, fmap.mean(dim=(1, 2))
 
 
 def _resnet_backbone(focuser, x: torch.Tensor, runner: _UnitRunner, n_frames: int = 0):
-    h = runner("stem", x, focuser.stem)
+    h = runner("stem", Act(x), focuser.stem).y
     h = F.max_pool2d(h.permute(0, 3, 1, 2), kernel_size=3, stride=2, padding=1)
-    h = h.permute(0, 2, 3, 1).contiguous()
-    for name in focuser.block_names:
+    h = Act(h.permute(0, 2, 3, 1).contiguous())
+    names = focuser.block_names
+    for i, name in enumerate(names):
         block = getattr(focuser, name)
-        b = temporal_shift(h, n_frames) if n_frames > 0 else h
-        b = runner(f"{name}/conv1", b, block.conv1)
-        b = runner(f"{name}/conv2", b, block.conv2)
-        b = runner(f"{name}/conv3", b, block.conv3)
-        res = runner(f"{name}/down", h, block.down) if block.down is not None else h
-        # relu(f32 + f32) rounded once to the compute dtype, as JAX computes it
-        h = (b + res).relu_()
-    return h, h.mean(dim=(1, 2))
+        to = f"{names[i + 1]}/conv1" if i + 1 < len(names) else None
+        b = runner.shift(h, n_frames) if n_frames > 0 else h
+        b = runner(f"{name}/conv1", b, block.conv1, to=f"{name}/conv2")
+        b = runner(f"{name}/conv2", b, block.conv2, to=f"{name}/conv3")
+        # relu(b + res) rounded once to the compute dtype, as JAX computes it,
+        # in the epilogue of the block's last unit
+        if block.down is None:
+            h = runner(f"{name}/conv3", b, block.conv3, to=to, keep=True, residual=h,
+                       res_relu=True)
+        else:
+            b = runner(f"{name}/conv3", b, block.conv3)
+            h = runner(f"{name}/down", Act(h.y), block.down, to=to, keep=True, residual=b,
+                       res_relu=True)
+    return h.y, h.y.mean(dim=(1, 2))
 
 
 def _run_backbone(kind: str, module, x: torch.Tensor, scales, n_frames: int = 0,

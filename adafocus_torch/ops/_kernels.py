@@ -54,12 +54,13 @@ SIGNATURES = {
         "fused_bottleneck_blocks_per_sm": [_c_int] * 5,
     },
     "int8_conv": {
-        # x, w, rescale, bias, out, m, h, w, cin, ho, wo, cout, k, kpad,
-        # cout_pad, kh, stride, pad, act, vec, out_kind, stream
-        "int8_conv": [_c_ptr] * 5 + [_c_ll] + [_c_int] * 15 + [_c_ptr],
-        # x, w9, rescale, bias, out, n, h, w, c, ho, wo, stride, act, vec,
-        # out_kind, stream
-        "int8_dwconv": [_c_ptr] * 5 + [_c_int] * 10 + [_c_ptr],
+        # x, x_scale, w, rescale, bias, res, out, outq, q_scale, ws, m,
+        # in_kind, out_kind, res_relu, act, h, w, cin, ho, wo, cout, k,
+        # ksteps, bk, bn, cout_pad, kh, stride, pad, nc, splits, stream
+        "int8_conv": [_c_ptr] * 10 + [_c_ll] + [_c_int] * 20 + [_c_ptr],
+        # x, x_scale, w9, rescale, bias, out, outq, q_scale, in_kind,
+        # out_kind, act, n, h, w, c, ho, wo, stride, stream
+        "int8_dwconv": [_c_ptr] * 8 + [_c_int] * 10 + [_c_ptr],
     },
 }
 

@@ -9,9 +9,10 @@ Phases, each raising on failure:
      card's name and power limit (nvidia-smi);
   2. builds every CUDA kernel of the port from ``adafocus_torch/csrc``,
      prints each kernel's registers and spills (``-Xptxas -v``) and, from
-     ``cuobjdump -sass``, the tensor-core instructions (HGMMA = wgmma, HMMA =
-     mma.sync) of each fused-block kernel instance; raises if a bf16
-     instance has no tensor-core instruction;
+     ``cuobjdump -sass``, the tensor-core instructions (HGMMA = wgmma, HMMA
+     and IMMA = mma.sync) of each fused-block and int8 kernel instance;
+     raises if a bf16 instance has no tensor-core instruction, or if an
+     instance of the int8 GEMM kernel has no HGMMA or any mma.sync;
   3. holds each kernel against its plain PyTorch version on the card at the
      shapes the main path gives it, plus edge and odd shapes (patch
      extraction is a copy: bit-identical, at every misalignment of the
@@ -156,10 +157,21 @@ Phases, each raising on failure:
      (144^2) and of the flagship's heads at M = 1 and 64: the int32
      accumulators equal, the float32 outputs bit-identical but where the
      plain version's float64-emulated FMA double-rounds (counted, each
-     within 1 ulp), the bf16 store the float32 output rounded; each shape
-     timed at N=64 beside the plain version and the yardstick
-     (``torch._int_mm`` where it takes the product, else cuDNN's or
-     cuBLAS's bf16 op) with its bound. Then each family (the flagship, the
+     within 1 ulp), the bf16 store the float32 output rounded; each
+     backbone unit also with the fused options the int8 forward runs it
+     with (its codes at the consumer's scale, its bf16 output where kept,
+     the residual and the ReLU after it, an input quantized on load): bf16
+     outputs bit-identical but for counted double roundings, codes equal
+     but at those outputs (each within 1); each shape timed as the forward
+     launches it at N=1024 (the B=64 forward's frames and patches) and N=64
+     (the matched focuser at N=64, the heads at their M) beside the plain
+     version and the yardstick (``torch._int_mm`` where it takes the
+     product, else cuDNN's or cuBLAS's bf16 op) with its bound (the bytes
+     each fused unit reads and writes). Each int8 backbone of the flagship
+     and of the matched configuration (TSM) fused against the unfused
+     composition (``quantize_act`` before every unit, the residual added
+     apart) on the same kernels: no ``quantize_act`` in the fused one, its
+     every unit's codes, map and pooled features equal. Then each family (the flagship, the
      matched configuration, ``plus_cfg((96, 8))``) in modes int8 and
      int8+heads at B=2, calibrated on two seeded batches: logits on int8
      transport frames against the port's bf16 and float32 forwards
@@ -227,7 +239,8 @@ Phases, each raising on failure:
      3 launches and, in bf16, its ms is within 10% of phase 5's; the rows
      sum to ``split_phases``' busy time of the same trace within 2%; the
      int8 forward's busy time split into ``int8_conv``, ``int8_dwconv``, the
-     quantize passes, the dequantize passes and the rest. (d)
+     quantize passes (none may run a kernel: the backbones requantize inside
+     the int8 kernels), the dequantize passes and the rest. (d)
      ``ops.flops.gflops_per_video`` of the flagship forward equal to
      ``benchmark.inference_gflops_per_video``. (e) ``resnet18``,
      ``resnet34``, ``resnet101``, ``resnet152`` and ``wide_resnet101`` over
@@ -280,34 +293,39 @@ N4_ROUNDS = 2               # rounds of fresh inputs for the N=4 block checks
 
 
 def tensor_core_instructions() -> dict:
-    """Phase 2: {kernel instance: {"HGMMA": n, "HMMA": n}} of the fused-block
-    libraries, counted in ``cuobjdump -sass``. Raises if a bf16 instance
-    (``*_tc_kernel``) has neither, or if a CUDA-core kernel was instantiated
-    for bf16."""
+    """Phase 2: {kernel instance: {"HGMMA": n, "HMMA": n, "IMMA": n}} of the
+    fused-block and int8 libraries, counted in ``cuobjdump -sass``. Raises if
+    a bf16 instance (``*_tc_kernel``) has no tensor-core instruction, if a
+    CUDA-core kernel was instantiated for bf16, or if an instance of the
+    int8 GEMM kernel (``conv_kernel``) issues no wgmma (HGMMA) or any
+    mma.sync (IMMA, HMMA)."""
     from adafocus_torch.ops import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     counts, name = {}, None
-    for lib in ("fused_inv_residual", "fused_bottleneck"):
+    for lib in ("fused_inv_residual", "fused_bottleneck", "int8_conv"):
         sass = subprocess.run([tool, "-sass", str(_kernels.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 name = m.group(1)
-                counts[name] = {"HGMMA": 0, "HMMA": 0}
+                counts[name] = {"HGMMA": 0, "HMMA": 0, "IMMA": 0}
             elif name is not None:
-                for op in re.findall(r"\b(HGMMA|HMMA)\.", line):
+                for op in re.findall(r"\b(HGMMA|HMMA|IMMA)\.", line):
                     counts[name][op] += 1
     tc = {k: v for k, v in counts.items() if "tc_kernel" in k}
-    if len(tc) < 2:
-        raise AssertionError(f"no bf16 tensor-core kernel instance in the SASS: {sorted(counts)}")
+    int8 = {k: v for k, v in counts.items() if "int8_conv" in k and "conv_kernel" in k}
+    if len(tc) < 2 or not int8:
+        raise AssertionError(f"no tensor-core kernel instance in the SASS: {sorted(counts)}")
     for k, v in counts.items():
-        print(f"sass {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}", flush=True)
+        print(f"sass {k}: HGMMA {v['HGMMA']}, HMMA {v['HMMA']}, IMMA {v['IMMA']}", flush=True)
         if k in tc and v["HGMMA"] + v["HMMA"] == 0:
             raise AssertionError(f"bf16 kernel {k} has no tensor-core instruction")
         if "tc_kernel" not in k and "bfloat16" in k:
             raise AssertionError(f"{k}: a CUDA-core fused kernel instantiated for bf16")
+        if k in int8 and (v["HGMMA"] == 0 or v["HMMA"] + v["IMMA"]):
+            raise AssertionError(f"int8 GEMM instance {k} is not on wgmma: {v}")
     return counts
 
 
@@ -2855,15 +2873,20 @@ def plus_phase(device, card: str) -> dict:
 
 INT8_OPS = 1979e12          # H100 SXM dense int8 tensor-core peak (data sheet)
 INT8_CHECK_N = 2            # frames / patches of each unit shape's check against the plain version
-INT8_TIME_N = 64            # frames / patches of each unit shape's timing
+INT8_TIME_N = (1024, 64)    # frames / patches of each unit shape's timing: the B=64 forward's
+#                             N (16 frames and 16 patches a video), and N=64
 INT8_HEAD_M = (1, 64)       # rows of the heads' products: batch 1, and B=64 videos
 HEAD_STEPS = {"policy/gru/h": 16, "cls/gru/h": 16}   # the flagship's T GRU steps a forward
 
 
 def _q8_unit_shapes(backbone, kind: str, size: int, device) -> list:
     """Every int8 unit of one backbone at input side ``size``, in forward
-    order: (name, ConvBNAct, (H, W, Cin)), from one pass at N=1 whose runner
-    records each unit and runs it in float32."""
+    order: (name, ConvBNAct, (H, W, Cin), fused options), from one pass at
+    N=1 whose runner records each unit and runs it in float32. The options
+    are those the int8 forward runs the unit with (``_UnitRunner``):
+    ``codes_in`` (its producer writes its input's codes; else the input is
+    quantized on load), ``to`` (the unit that reads its codes, or None),
+    ``keep`` (its compute-dtype output written), ``residual``, ``res_relu``."""
     import torch
 
     from adafocus_torch.models import quant_inference as qi
@@ -2871,15 +2894,24 @@ def _q8_unit_shapes(backbone, kind: str, size: int, device) -> list:
 
     seen = []
 
-    def record(name, x, unit):
-        if name != "stem":
-            seen.append((name, unit, tuple(x.shape[1:])))
-        return _conv_bn(x, unit, torch.float32)
+    class Record:
+        def __call__(self, name, x, unit, to=None, keep=False, residual=None, res_relu=False):
+            if name != "stem":
+                seen.append((name, unit, tuple(x.y.shape[1:]),
+                             {"to": to, "keep": keep or to is None,
+                              "residual": residual is not None, "res_relu": res_relu}))
+            y = _conv_bn(x.y, unit, torch.float32)
+            if residual is not None:
+                y = y + residual.y
+                y = y.relu_() if res_relu else y
+            return qi.Act(y)
 
     fn = qi._mbv2_backbone if kind == "mbv2" else qi._resnet_backbone
     with torch.inference_mode():
-        fn(backbone, torch.zeros((1, size, size, 3), device=device), record)
-    return seen
+        fn(backbone, torch.zeros((1, size, size, 3), device=device), Record())
+    producers = {opts["to"] for *_, opts in seen}
+    return [(name, unit, shape, dict(opts, codes_in=name in producers))
+            for name, unit, shape, opts in seen]
 
 
 def _q8_head_shapes(model) -> list:
@@ -2943,14 +2975,88 @@ def _check_int8_case(run, acc, plain, label: str) -> dict:
             "values": got.numel()}
 
 
-def _int8_cost(x_q, qc, out_shape, k: int) -> tuple:
-    """(bytes, operations) one call must move and do: the int8 input and
-    weight read once, the bf16 output written once, rescale and bias; two
-    operations a multiply-add."""
+def _fused_case(qc, x_codes, stride: int, groups: int, act, opts: dict, gen):
+    """A backbone unit as the int8 forward runs it (bf16, its fused options)
+    on inputs made from the codes ``x_codes``: the codes themselves, or bf16
+    values of their range to be quantized on load; a bf16 residual of the
+    output's spread; the consumer's scale from the plain output's range.
+    Returns (kernel(keep) -> (y, codes), plain() -> (y, codes))."""
+    import torch
+
+    from adafocus_torch.ops import quant as q
+
+    x = x_codes if opts["codes_in"] else (x_codes.float() * qc.x_scale * 1.1).bfloat16()
+    y0 = q.unit_reference(x, qc.kernel_q, stride, groups, qc.rescale, qc.bias, act,
+                          torch.bfloat16, qc.x_scale)[0]
+    residual = None
+    if opts["residual"]:
+        residual = (torch.randn(y0.shape, generator=gen, device=y0.device)
+                    * y0.float().std()).bfloat16()
+    out_scale = None
+    if opts["to"] is not None:
+        out_scale = (y0.float().abs().amax() / 127).clamp_min(1e-6).reshape(())
+
+    def run(keep):
+        return q.int8_unit(x, qc, stride, groups, act, torch.bfloat16, out_scale=out_scale,
+                           keep=keep, residual=residual, res_relu=opts["res_relu"])
+
+    def plain():
+        return q.unit_reference(x, qc.kernel_q, stride, groups, qc.rescale, qc.bias, act,
+                                torch.bfloat16, qc.x_scale, residual, opts["res_relu"],
+                                out_scale)
+
+    return run, plain
+
+
+def _check_fused_case(run, plain, opts: dict, label: str) -> dict:
+    """A unit's fused kernel against the plain composition: the bf16 outputs
+    (written with ``keep``) bit-identical but where the plain version's
+    float64-emulated FMA double-rounds (counted, each within 1 bf16 ulp); the
+    int8 codes equal but at those outputs (counted, each within 1); the
+    launch the forward makes (its own ``keep``) gives the same codes and
+    outputs."""
+    import torch
+
+    y, codes = run(True)
+    y_ref, codes_ref = plain()
+    torch.cuda.synchronize()
+    moved = y != y_ref
+    n_moved = int(moved.sum())
+    if n_moved:
+        ulps = (y[moved].view(torch.int16).long() - y_ref[moved].view(torch.int16).long()).abs()
+        if ulps.max().item() > 1:
+            raise AssertionError(f"int8 {label} fused: {n_moved} bf16 outputs differ, up to "
+                                 f"{ulps.max().item()} ulp")
+    n_codes = 0
+    if codes is not None:
+        differ = codes != codes_ref
+        n_codes = int(differ.sum())
+        if n_codes and ((differ & ~moved).any() or
+                        (codes.long() - codes_ref.long())[differ].abs().max().item() > 1):
+            raise AssertionError(f"int8 {label} fused: {n_codes} codes differ, beyond the "
+                                 f"{n_moved} double-rounded outputs or by more than 1")
+    y_fwd, codes_fwd = run(opts["keep"])
+    if (y_fwd is not None and not torch.equal(y_fwd, y)) or (
+            codes is not None and not torch.equal(codes_fwd, codes)):
+        raise AssertionError(f"int8 {label} fused: the forward's launch (keep={opts['keep']}) "
+                             f"differs from the checked one")
+    return {"fused_double_rounded": n_moved, "fused_codes_moved": n_codes,
+            "fused_max_abs_err": (y.float() - y_ref.float()).abs().max().item()}
+
+
+def _int8_cost(x, qc, out_shape, k: int, opts) -> tuple:
+    """(bytes, operations) one call must move and do: its input read once
+    (int8 codes, or the bf16 values it quantizes on load), the weight once,
+    rescale and bias; what it writes once (the int8 codes, the bf16 output
+    where it keeps it; a head its float32 output) and the residual it
+    reads; two operations a multiply-add."""
     import math
 
     out = math.prod(out_shape)
-    moved = x_q.numel() + qc.kernel_q.numel() + 2 * out + 8 * out_shape[-1]
+    per_value = 4 if opts is None else (
+        (1 if opts["to"] else 0) + (2 if opts["keep"] else 0) + (2 if opts["residual"] else 0))
+    moved = (x.numel() * x.element_size() + qc.kernel_q.numel() + per_value * out
+             + 8 * out_shape[-1])
     return moved, 2 * out * k
 
 
@@ -2984,18 +3090,72 @@ def _int8_library(x_q, qc, stride: int, groups: int, dense: bool):
                                                groups=groups)
 
 
-def _int8_unit_rows(units: list, dense: bool, n_check: int, n_time: int, gen, device,
+def _int8_timed(qc, in_shape, stride, groups, act, opts, dense, n, gen, device,
+                label: str) -> dict:
+    """One unit shape at N=n as the forward launches it (bf16 with its fused
+    options; a head float32): first held against the plain version on the
+    same inputs (``_check_fused_case``; a head ``_check_int8_case``), since
+    the launch plan depends on M (``plan_int8_conv``), then kernel, plain
+    version and yardstick ms, with its bound."""
+    import torch
+
+    x = torch.randint(-127, 128, (n,) + in_shape, generator=gen, device=device,
+                      dtype=torch.int8)
+    k = qc.kernel_q[0].numel()
+    if dense:
+        run, acc, plain = _int8_case(qc, x, stride, groups, act, dense)
+        check = _check_int8_case(run, acc, plain, f"{label} N={n}")
+        fn, plain_fn, x_in = (lambda: run(torch.float32)), (lambda: plain(torch.float32)), x
+        out_shape = tuple(acc.shape)
+        del acc
+    else:
+        run, plain = _fused_case(qc, x, stride, groups, act, opts, gen)
+        check = _check_fused_case(run, plain, opts, f"{label} N={n}")
+        check["max_abs_err"] = check["fused_max_abs_err"]
+        fn, plain_fn = (lambda: run(opts["keep"])), plain
+        got = fn()
+        out_shape = tuple((got[0] if got[0] is not None else got[1]).shape)
+        x_in = x if opts["codes_in"] else x.bfloat16()
+        del got
+    torch.cuda.empty_cache()
+    lib_name, lib = _int8_library(x, qc, stride, groups, dense)
+    big = n > INT8_TIME_N[-1]
+    with torch.inference_mode():
+        ms = _time_ms(fn, iters=20, warmup=3)
+        plain_ms = _time_ms(plain_fn, iters=1 if big else 3, warmup=1)
+        library_ms = _time_ms(lib, iters=20, warmup=3)
+    moved, ops = _int8_cost(x_in, qc, out_shape, k, opts)
+    bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
+    del x
+    torch.cuda.empty_cache()
+    return {"n": n, "ms": ms, "plain_ms": plain_ms, "library": lib_name,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "tops": ops / ms / 1e9, "check": check}
+
+
+def _moved(check: dict) -> str:
+    if "fused_double_rounded" not in check:
+        return f"{check['double_rounded']} float32 outputs double-rounded"
+    return (f"{check['fused_double_rounded']} bf16 outputs double-rounded, "
+            f"{check['fused_codes_moved']} codes moved by 1")
+
+
+def _int8_unit_rows(units: list, dense: bool, n_check: int, n_times, gen, device,
                     label: str) -> list:
     """Each distinct unit shape of ``units`` ((name, weight qc, input shape,
-    stride, groups, act, launches a forward)): checked at ``n_check``
-    against the plain version, then timed at ``n_time`` beside the plain
-    version and the yardstick, with its bound. One row a shape, the
-    launches of every unit of that shape summed."""
+    stride, groups, act, launches a forward, fused options or None for a
+    head)): checked at ``n_check`` against the plain version (accumulators,
+    float32 and bf16 outputs; a backbone unit also with its fused options),
+    then timed at each N of ``n_times`` beside the plain version and the
+    yardstick, with its bound. One row a shape, the launches of every unit
+    of that shape summed; its top-level times at ``n_times[0]``."""
     import torch
 
     rows, by_key = [], {}
-    for name, qc, in_shape, stride, groups, act, launches in units:
-        key = (in_shape, tuple(qc.kernel_q.shape), stride, groups, act)
+    for name, qc, in_shape, stride, groups, act, launches, opts in units:
+        key = (in_shape, tuple(qc.kernel_q.shape), stride, groups, act,
+               None if opts is None else tuple(sorted(opts.items())))
         if key in by_key:
             by_key[key]["launches"] += launches
             by_key[key]["units"].append(name)
@@ -3009,38 +3169,34 @@ def _int8_unit_rows(units: list, dense: bool, n_check: int, n_time: int, gen, de
                  f"{in_shape[0]}x{in_shape[1]}x{in_shape[2]} k{qc.kernel_q.shape[-1]} "
                  f"s{stride} -> {qc.kernel_q.shape[0]}{' dw' if groups > 1 else ''}")
         check = _check_int8_case(run, acc, plain, f"{label} {name} {shape}")
+        if opts is not None:
+            frun, fplain = _fused_case(qc, x_chk, stride, groups, act, opts, gen)
+            check.update(_check_fused_case(frun, fplain, opts, f"{label} {name} {shape}"))
+            check["max_abs_err"] = max(check["max_abs_err"], check["fused_max_abs_err"])
         del x_chk, acc
-        x = torch.randint(-127, 128, (n_time,) + in_shape, generator=gen, device=device,
-                          dtype=torch.int8)
-        run, acc, plain = _int8_case(qc, x, stride, groups, act, dense)
-        out_shape = tuple(run(torch.int32).shape)
-        lib_name, lib = _int8_library(x, qc, stride, groups, dense)
-        with torch.inference_mode():
-            ms = _time_ms(lambda: run(torch.bfloat16), iters=20, warmup=3)
-            plain_ms = _time_ms(lambda: plain(torch.bfloat16), iters=3, warmup=1)
-            library_ms = _time_ms(lib, iters=20, warmup=3)
-        moved, ops = _int8_cost(x, qc, out_shape, k)
-        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
-        row = by_key[key] = {
-            "kernel": kind, "units": [name], "launches": launches, "shape": shape,
-            "n": n_time, "ms": ms, "plain_ms": plain_ms, "library": lib_name,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "tops": ops / ms / 1e9, **check}
+        times = {n: _int8_timed(qc, in_shape, stride, groups, act, opts, dense, n, gen,
+                                device, f"{label} {name} {shape}") for n in n_times}
+        check["max_abs_err"] = max([check["max_abs_err"]]
+                                   + [t["check"]["max_abs_err"] for t in times.values()])
+        row = by_key[key] = {"kernel": kind, "units": [name], "launches": launches,
+                             "shape": shape, "options": opts, **times[n_times[0]],
+                             "by_n": times, **check}
         rows.append(row)
-        print(f"{kind} {label} {name} {shape}: kernel {ms!r} ms at N={n_time} "
-              f"({row['tops']!r} TOP/s), plain {plain_ms!r} ms, {lib_name} {library_ms!r} ms, "
-              f"bound {row['bound_ms']!r} ms ({row['bound_by']}); accumulators equal, "
-              f"{check['double_rounded']} of {check['values']} float32 outputs double-rounded",
-              flush=True)
-        del x, acc
-        torch.cuda.empty_cache()
+        print(f"{kind} {label} {name} {shape} {opts}: "
+              + "; ".join(f"N={n} kernel {t['ms']!r} ms ({t['tops']!r} TOP/s), plain "
+                          f"{t['plain_ms']!r} ms, {t['library']} {t['library_ms']!r} ms, bound "
+                          f"{t['bound_ms']!r} ms ({t['bound_by']}), held against plain "
+                          f"({_moved(t['check'])})" for n, t in times.items())
+              + f"; accumulators equal, {check['double_rounded']} of {check['values']} float32 "
+              f"outputs double-rounded"
+              + (f", fused: {check['fused_double_rounded']} bf16 outputs double-rounded, "
+                 f"{check['fused_codes_moved']} codes moved by 1" if opts else ""), flush=True)
     return rows
 
 
 def _backbone_units(backbone, kind: str, size: int, device) -> list:
     """``_int8_unit_rows``' entries of one backbone: the real folded weights
-    quantized, a fixed input scale."""
+    quantized, a fixed input scale, each unit's fused options."""
     import torch
 
     from adafocus_torch.models.quant_inference import _ACT_NAMES
@@ -3048,13 +3204,14 @@ def _backbone_units(backbone, kind: str, size: int, device) -> list:
     from adafocus_torch.ops.quant import QConv, prepare_qconv, quantize_weight
 
     units = []
-    for name, unit, in_shape in _q8_unit_shapes(backbone, kind, size, device):
+    for name, unit, in_shape, opts in _q8_unit_shapes(backbone, kind, size, device):
         kernel, bias = fold_bn(unit)
         kq, ws = quantize_weight(kernel)
         groups = unit.conv.groups
         qc = prepare_qconv(QConv(kq, ws, bias, torch.tensor(0.05, device=device)),
                            depthwise=groups > 1)
-        units.append((name, qc, in_shape, unit.conv.stride[0], groups, _ACT_NAMES[unit.act], 1))
+        units.append((name, qc, in_shape, unit.conv.stride[0], groups, _ACT_NAMES[unit.act], 1,
+                      opts))
     return units
 
 
@@ -3068,28 +3225,39 @@ def _head_units(model, m: int, gen, device) -> list:
         kq, ws = quantize_weight(weight.float())
         b = torch.randn(kq.shape[0], generator=gen, device=device) * 0.1
         qc = prepare_qconv(QConv(kq, ws, b, torch.ones((), device=device)))
-        units.append((name, qc, (kq.shape[1],), 1, 1, None, launches))
+        units.append((name, qc, (kq.shape[1],), 1, 1, None, launches, None))
     return units
 
 
 def _int8_kernel_row(name: str, rows: list, line: int, shape: str) -> dict:
-    total = {k: sum(r["launches"] * r[k] for r in rows)
+    """One kernel's line: each time summed over the forward's launches, at
+    the rows' first N (top level) and at each N (``by_n``)."""
+    def totals(by):
+        t = {k: sum(r["launches"] * by(r)[k] for r in rows)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_bytes = sum(r["launches"] * r["bound_ms"] for r in rows if r["bound_by"] == "bytes")
-    return {"name": name, "route": "cuda", "source": "adafocus_torch/csrc/int8_conv.cu",
-            "replaces": f"adafocus_tpu/ops/quant.py:{line}",
-            "max_abs_err": max(r["max_abs_err"] for r in rows), **total,
-            "bound_by": "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations",
-            "double_rounded": sum(r["double_rounded"] for r in rows), "shape": shape}
+        by_bytes = sum(r["launches"] * by(r)["bound_ms"] for r in rows
+                       if by(r)["bound_by"] == "bytes")
+        t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
+        return t
+
+    out = {"name": name, "route": "cuda", "source": "adafocus_torch/csrc/int8_conv.cu",
+           "replaces": f"adafocus_tpu/ops/quant.py:{line}",
+           "max_abs_err": max(r["max_abs_err"] for r in rows), **totals(lambda r: r),
+           "double_rounded": sum(r["double_rounded"] for r in rows), "shape": shape}
+    if all("by_n" in r for r in rows):
+        out["by_n"] = {n: totals(lambda r, n=n: r["by_n"][n]) for n in rows[0]["by_n"]}
+    return out
 
 
 def check_int8_kernels(device) -> tuple:
     """Phase 12's kernel check: every int8 unit shape of the flagship's
-    glancer (224^2) and focuser (96^2 patches), of the matched
-    configuration's focuser (144^2) and the flagship's heads at M = 1 and
-    64, against the plain version (accumulators equal, outputs bit-identical
-    but for double rounding), then timed. Returns (the kernels line's rows
-    for int8_conv and int8_dwconv, every shape's row)."""
+    glancer (224^2) and focuser (96^2 patches) and of the matched
+    configuration's focuser (144^2), with the fused options the int8 forward
+    runs it with, and the flagship's heads at M = 1 and 64, against the
+    plain version (accumulators equal, outputs bit-identical but for double
+    rounding, codes equal but at a double-rounded output), then timed at
+    N=1024 and N=64 (the heads at their M). Returns (the kernels line's
+    rows for int8_conv and int8_dwconv, every shape's row)."""
     import torch
 
     from adafocus_torch.benchmark import sthsth_cfg
@@ -3103,38 +3271,98 @@ def check_int8_kernels(device) -> tuple:
                                  INT8_CHECK_N, INT8_TIME_N, gen, device, "flagship glancer")
                  + _int8_unit_rows(_backbone_units(flag.focuser, "resnet", 96, device), False,
                                    INT8_CHECK_N, INT8_TIME_N, gen, device, "flagship focuser"))
-    head_rows = {m: _int8_unit_rows(_head_units(flag, m, gen, device), True, m, m, gen,
+    head_rows = {m: _int8_unit_rows(_head_units(flag, m, gen, device), True, m, (m,), gen,
                                     device, f"flagship heads M={m}") for m in INT8_HEAD_M}
     del flag
     matched = _randomize_bn(GFV(sthsth_cfg(144), device="cpu", generator=cpu_gen,
                                 param_dtype=torch.float32), cpu_gen).to(device)
     matched_rows = _int8_unit_rows(_backbone_units(matched.focuser, "resnet", 144, device),
-                                   False, INT8_CHECK_N, INT8_TIME_N, gen, device,
+                                   False, INT8_CHECK_N, INT8_TIME_N[-1:], gen, device,
                                    "matched focuser")
     del matched
     torch.cuda.empty_cache()
     conv = [r for r in flag_rows if r["kernel"] == "int8_conv"]
     dw = [r for r in flag_rows if r["kernel"] == "int8_dwconv"]
-    n = INT8_TIME_N
+    n = INT8_TIME_N[0]
     conv_row = _int8_kernel_row(
         "int8_conv", conv, 74, f"flagship int8 units, 224^2 glancer and 96^2 focuser, "
-        f"N={n} frames and {n} patches, summed over one forward's units")
+        f"N={n} frames and {n} patches (by_n: also N={INT8_TIME_N[1]}), summed over one "
+        f"forward's units")
     conv_row["matched"] = _int8_kernel_row(
-        "int8_conv", matched_rows, 74,
-        f"matched focuser int8 units at 144^2, N={n} patches, summed over one forward's units")
+        "int8_conv", matched_rows, 74, f"matched focuser int8 units at 144^2, "
+        f"N={INT8_TIME_N[-1]} patches, summed over one forward's units")
     conv_row["heads"] = {m: _int8_kernel_row(
         "int8_conv", rows, 86, f"flagship heads at M={m}, summed over one int8+heads "
         f"forward's products") for m, rows in head_rows.items()}
     dw_row = _int8_kernel_row(
-        "int8_dwconv", dw, 74, f"flagship glancer depthwise units at 224^2, N={n} frames, "
-        f"summed over one forward's units")
+        "int8_dwconv", dw, 74, f"flagship glancer depthwise units at 224^2, N={n} frames "
+        f"(by_n: also N={INT8_TIME_N[1]}), summed over one forward's units")
     for row in (conv_row, dw_row):
         print(f"{row['name']}: {row['shape']}: kernel {row['ms']!r} ms, plain "
               f"{row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound "
-              f"{row['bound_ms']!r} ms ({row['bound_by']}); {row['double_rounded']} "
-              f"double-rounded outputs", flush=True)
+              f"{row['bound_ms']!r} ms ({row['bound_by']}); by N {row.get('by_n')}; "
+              f"{row['double_rounded']} double-rounded outputs", flush=True)
     shapes = flag_rows + matched_rows + [r for rows in head_rows.values() for r in rows]
     return [conv_row, dw_row], shapes
+
+
+def check_fused_backbones(device, card: str) -> dict:
+    """Phase 12: each int8 backbone of the flagship (bf16, glancer on
+    Q8_SMALL_B x 16 frames of 224^2, focuser on as many 96^2 patches; and
+    the matched configuration's TSM backbones) fused against the unfused
+    composition on the card: no ``quantize_act`` inside the fused one, every
+    unit's input codes (``code_tap``) and the map and pooled features
+    equal. Both run the same kernel epilogue, so equal is the bar."""
+    import torch
+
+    from adafocus_torch.benchmark import sthsth_cfg
+    from adafocus_torch.models import quant_inference as qi
+    from adafocus_torch.models.gfv import GFV, flagship
+
+    out = {}
+    for cfg_name, cfg in (("flagship", flagship()), ("matched", sthsth_cfg(144))):
+        model = GFV(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+        gen = torch.Generator(device=device).manual_seed(SEED + 125)
+        for kind, module, size, n_frames in (
+                ("mbv2", model.glancer, cfg.glance_size, cfg.num_frames if cfg.tsm else 0),
+                ("resnet", model.focuser, cfg.patch_size, cfg.t_focuser if cfg.tsm else 0)):
+            t = n_frames or cfg.num_frames
+            xs = [torch.randn((Q8_SMALL_B * t, size, size, 3), generator=gen, device=device)
+                  .bfloat16() for _ in range(2)]
+            scales = qi.calibrate_backbone(kind, module, xs, n_frames, torch.bfloat16)
+            fused = qi._UnitRunner(scales, torch.bfloat16, {})
+            fn = qi._mbv2_backbone if kind == "mbv2" else qi._resnet_backbone
+            taps, calls = [], []
+            real = qi.quantize_act
+            qi.quantize_act = lambda *a: calls.append(1) or real(*a)
+            try:
+                with torch.inference_mode():
+                    fmap, pooled = fn(module, xs[0], fused, n_frames)
+                    n_calls = len(calls)
+                    qi.code_tap = lambda name, q: taps.append((name, q))
+                    fn(module, xs[0], fused, n_frames)
+            finally:
+                qi.quantize_act, qi.code_tap = real, None
+            unfused = qi._UnfusedRunner(scales, torch.bfloat16, fused.qw)
+            with torch.inference_mode():
+                want_map, want_pooled = fn(module, xs[0], unfused, n_frames)
+            torch.cuda.synchronize()
+            names = [n for n, _ in taps]
+            differ = sum(int((a != b).sum()) for (_, a), (_, b) in zip(taps, unfused.codes))
+            total = sum(a.numel() for _, a in taps)
+            row = {"units": len(taps), "codes": total, "codes_differing": differ,
+                   "quantize_act_calls": n_calls, "map_equal": torch.equal(fmap, want_map),
+                   "pooled_equal": torch.equal(pooled, want_pooled)}
+            print(f"int8 fused {cfg_name} {kind} backbone (N={xs[0].shape[0]}): {row} ({card})",
+                  flush=True)
+            if (n_calls or names != [n for n, _ in unfused.codes] or len(taps) != len(scales)
+                    or differ or not row["map_equal"] or not row["pooled_equal"]):
+                raise AssertionError(f"int8 fused {cfg_name} {kind} backbone against the "
+                                     f"unfused composition: {row}")
+            out[f"{cfg_name} {kind}"] = row
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 # the int8 forward against the port's bf16 and float32 forwards: the JAX
@@ -3161,6 +3389,7 @@ def _q8_counts(reset: bool = False) -> dict:
     if reset:
         for fn in fns.values():
             fn.launches = 0
+        int8_conv.finish_launches = 0
     return {name: fn.launches for name, fn in fns.items()}
 
 
@@ -3429,6 +3658,7 @@ def q8_phase(device, card: str) -> dict:
 
     start = time.perf_counter()
     rows, shapes = check_int8_kernels(device)
+    fused = check_fused_backbones(device, card)
     checks, models = q8_forward_checks(device, card)
     timing, scales = q8_throughput(models, device, card)
     del models
@@ -3436,8 +3666,9 @@ def q8_phase(device, card: str) -> dict:
     cli = q8_cli(device, card)
     for row in rows:
         row["launches"] = checks["flagship"]["int8"]["launches"][row["name"]]
-    return {"kernel_rows": rows, "shapes": shapes, "checks": checks, "timing": timing,
-            "cli": cli, "flagship_scales": scales, "seconds": time.perf_counter() - start}
+    return {"kernel_rows": rows, "shapes": shapes, "fused_backbones": fused, "checks": checks,
+            "timing": timing, "cli": cli, "flagship_scales": scales,
+            "seconds": time.perf_counter() - start}
 
 
 # ---------------------------------------------------------------------------
@@ -4244,17 +4475,22 @@ def tool_warm_start_cli(device, card: str, tmp: str, converted: dict) -> dict:
 
 def _int8_split(events: list, rows: list) -> dict:
     """The int8 forward's device busy time by kind, ms a forward: the two
-    int8 kernels (by name), the quantize and dequantize passes (kernels
-    launched inside their ranges) and the rest."""
+    int8 kernels (by name; split K's second pass counts as int8_conv), the
+    quantize and dequantize passes (kernels launched inside their ranges)
+    and the rest. Raises if a quantize pass ran a kernel: the backbones
+    requantize inside the int8 kernels, and mode int8 has no int8 head."""
     from port_patch_times import split_phases
 
     total = sum(r[1] for r in rows)
-    conv = sum(r[1] for r in rows if re.search(r"\bconv_kernel\b", r[0]))
-    dw = sum(r[1] for r in rows if re.search(r"\bdwconv_kernel\b", r[0]))
+    conv = sum(r[1] for r in rows if re.search(r"\b(conv_kernel|splitk_finish)\b", r[0]))
+    dw = sum(r[1] for r in rows if re.search(r"\bdw_kernel\b", r[0]))
     passes = split_phases(events, 1, ("quantize", "dequantize"))
     split = {"int8_conv": conv, "int8_dwconv": dw, "quantize": passes["quantize"]["busy_ms"],
              "dequantize": passes["dequantize"]["busy_ms"]}
     split["rest"] = total - sum(split.values())
+    if split["quantize"] != 0:
+        raise AssertionError(f"int8 forward: quantize passes ran kernels, {split['quantize']!r} "
+                             f"ms over {TOOL_FORWARDS} forwards")
     return {k: {"ms": v / TOOL_FORWARDS, "share_of_busy": v / total} for k, v in split.items()}
 
 
@@ -4267,7 +4503,7 @@ def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> di
     from adafocus_torch.models import quant_inference as qi
     from adafocus_torch.models.gfv import GFV, flagship, inference
     from adafocus_torch.ops import flops
-    from adafocus_torch.ops.quant import quantize_frames
+    from adafocus_torch.ops.quant import int8_conv, quantize_frames
     from adafocus_torch.utils.profiling import load_trace, top_ops, trace
     from port_patch_times import flagship_inputs, split_phases
 
@@ -4304,6 +4540,7 @@ def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> di
             finally:
                 qi.quantize_act, qi._dequant_frames = real
             launches = _q8_counts()
+            finish_launches = int8_conv.finish_launches
             rows = top_ops(log_dir, n=10**9, group=True)
             events = load_trace(log_dir)
             busy = split_phases(events, TOOL_FORWARDS, ("forward",))["forward"]["busy_ms"]
@@ -4312,6 +4549,7 @@ def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> di
             res = {"top15": [list(r) for r in rows[:15]], "rows": len(rows),
                    "busy_ms_per_forward": total / TOOL_FORWARDS,
                    "split_phases_busy_ms_per_forward": busy, "launches": launches,
+                   "splitk_finish_launches": finish_launches,
                    "patch_kernel": {"count": sum(r[2] for r in patch),
                                     "ms_per_forward": sum(r[1] for r in patch) / TOOL_FORWARDS}}
             want = {"extract_patches": TOOL_FORWARDS, "fused_inverted_residual": 0,
@@ -4628,9 +4866,13 @@ def main() -> int:
     # this slice's main path, phase 15: the patch kernel's count from the
     # warm-started CLI run, the int8 kernels' from the profiled int8 forwards
     rows[0]["launches"] = tool_cli["launches"]["extract_patches"]
+    # (int8_conv's count is conv_kernel's, one an op call; split K's second
+    # pass, splitk_finish, is counted apart)
     for row in rows:
         if row["name"] in ("int8_conv", "int8_dwconv"):
             row["launches"] = tools["profiles"]["int8"]["launches"][row["name"]]
+        if row["name"] == "int8_conv":
+            row["splitk_finish_launches"] = tools["profiles"]["int8"]["splitk_finish_launches"]
     # a path's count of a kernel it was not counted for (the int8 kernels
     # before phase 12) is None
     for row in rows:

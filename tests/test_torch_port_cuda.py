@@ -632,8 +632,14 @@ def test_cuda_int8_dense_matches_reference(m, k, n):
     unit = _int8_unit(n, k, 0, gen)
     x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
     acc = x.double() @ unit.kernel_q.double().t()
+    _, splits = tq.plan_int8_conv(m, unit.packed.shape[0], unit.packed.shape[1],
+                                  tq._sm_count(0))
+    before = tq.int8_conv.launches, tq.int8_conv.finish_launches
     _check_int8(lambda dt: tq.int8_dense(x, unit, None, dt), acc,
                 lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, None, dt))
+    # one conv_kernel launch a call; split K's second pass counted apart
+    assert (tq.int8_conv.launches, tq.int8_conv.finish_launches) == (
+        before[0] + 3, before[1] + (3 if splits > 1 else 0))
 
 
 @pytest.mark.cuda
@@ -654,6 +660,199 @@ def test_cuda_int8_dwconv_matches_reference(n, h, c, stride):
     _check_int8(lambda dt: tq.int8_conv(x, unit, stride, c, "relu6", dt), acc,
                 lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, "relu6", dt))
     assert tq.int8_dwconv.launches == before + 3
+
+
+def _check_fused(got, want):
+    """A fused unit's (output, codes) against the plain version's: outputs
+    bit-identical but where the plain version's float64-emulated FMA
+    double-rounds (each then within one ulp of the dtype); codes equal but
+    at those outputs, where they differ by at most 1. Returns the count of
+    double-rounded outputs."""
+    (y, q), (y_ref, q_ref) = got, want
+    assert (y is None) == (y_ref is None) and (q is None) == (q_ref is None)
+    ref = y_ref if y_ref is not None else None
+    moved = torch.zeros(q_ref.shape if q_ref is not None else y_ref.shape, dtype=torch.bool,
+                        device=(q_ref if q_ref is not None else y_ref).device)
+    if y is not None:
+        assert y.dtype == ref.dtype and y.shape == ref.shape
+        moved = y != ref
+        if moved.any():
+            view = torch.int32 if y.dtype == torch.float32 else torch.int16
+            ulps = (y[moved].view(view).long() - ref[moved].view(view).long()).abs()
+            assert ulps.max().item() <= 1
+    if q is not None:
+        assert q.dtype == torch.int8 and q.shape == q_ref.shape
+        codes = q != q_ref
+        if codes.any():
+            assert (q.long() - q_ref.long())[codes].abs().max().item() <= 1
+            if y is not None:
+                assert not (codes & ~moved).any()
+    return int(moved.sum())
+
+
+def _unaligned(t):
+    """t's values in a contiguous tensor whose data is not 16-byte aligned."""
+    flat = torch.empty(t.numel() * t.element_size() + 32, dtype=torch.uint8, device=t.device)
+    off = (16 - flat.data_ptr() % 16) % 16 + t.element_size()
+    out = flat[off:off + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0 and out.is_contiguous()
+    return out
+
+
+def _fused_case(x, unit, stride, groups, act, dtype, out_scale, keep, residual, res_relu):
+    from adafocus_torch.ops import quant as tq
+
+    got = tq.int8_unit(x, unit, stride, groups, act, dtype, out_scale=out_scale, keep=keep,
+                       residual=residual, res_relu=res_relu)
+    y, q = tq.unit_reference(x, unit.kernel_q, stride, groups, unit.rescale, unit.bias, act,
+                             dtype, unit.x_scale, residual, res_relu, out_scale)
+    return got, (y if keep else None, q)
+
+
+# (n, h, cin, cout, k, stride, input, outputs, residual): the fused options
+# of the backbones' units at edge shapes: K = 16 and 24 tails, Cout not a
+# multiple of 64, stride 2 on odd maps, a misaligned input, M = 1 and 7
+FUSED_CONV = [
+    (2, 14, 16, 96, 1, 1, "int8", "q", None),          # expand, K = 16
+    (2, 13, 24, 144, 1, 1, "int8", "q", None),         # expand, K = 24, odd map
+    (2, 9, 96, 24, 1, 1, "int8", "q+y", "add"),        # project with the residual
+    (2, 7, 160, 40, 1, 1, "int8", "y", "add"),         # Cout 40
+    (2, 11, 64, 64, 3, 2, "int8", "q", None),          # conv2, stride 2 on 11^2
+    (2, 9, 64, 256, 1, 1, "bf16", "q+y", "relu"),      # conv3 fed on load, relu(b + res)
+    (2, 9, 64, 256, 1, 2, "bf16", "q+y", "relu"),      # down, stride 2 on 9^2
+    (2, 8, 48, 72, 1, 1, "f32", "q", None),            # float32 input on load
+    (1, 1, 2048, 512, 1, 1, "int8", "q", None),        # M = 1: split K
+    (7, 1, 1024, 200, 1, 1, "int8", "q+y", None),      # M = 7: split K
+    (2, 7, 64, 144, 1, 1, "unaligned", "q+y", "relu"), # misaligned codes
+    (2, 7, 40, 72, 3, 1, "unaligned", "q", None),      # misaligned, Cin % 16 != 0
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,cin,cout,k,stride,inp,outs,res", FUSED_CONV,
+                         ids=[f"{c[2]}-{c[3]}-k{c[4]}s{c[5]}-{c[6]}-{c[7]}-{c[8]}"
+                              for c in FUSED_CONV])
+def test_cuda_int8_unit_fused_matches_reference(dtype, n, h, cin, cout, k, stride, inp, outs,
+                                                res):
+    """The GEMM kernel's fused epilogue against the plain version's
+    composition (``unit_reference``), one launch a unit."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(38 + cin + cout)
+    unit = _int8_unit(cout, cin, k, gen)
+    xf = torch.randn((n, h, h, cin), generator=gen) * 2
+    x = {"int8": tq.quantize_act(xf, torch.tensor(0.031)).cuda(), "bf16": xf.bfloat16().cuda(),
+         "f32": xf.cuda()}.get(inp)
+    if inp == "unaligned":
+        x = _unaligned(tq.quantize_act(xf, torch.tensor(0.031)).cuda())
+    ho = (h + 2 * ((k - 1) // 2) - k) // stride + 1
+    residual = (torch.randn((n, ho, ho, cout), generator=gen) * 3).to(dtype).cuda() \
+        if res else None
+    out_scale = torch.tensor(0.047).cuda() if "q" in outs else None
+    before = tq.int8_conv.launches
+    moved = _check_fused(*_fused_case(x, unit, stride, 1, "relu" if res is None else None,
+                                      dtype, out_scale, "y" in outs, residual, res == "relu"))
+    assert tq.int8_conv.launches == before + 1
+    print(f"{moved} double-rounded outputs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 64])
+@pytest.mark.parametrize("k,n", [(3328, 3072), (1024, 49), (24, 200)],
+                         ids=["gru_x", "actor", "k24"])
+def test_cuda_int8_dense_split_k_matches_reference(m, k, n):
+    """int8_dense at M = 1, 7 and 64: the split-K plan where it applies
+    (``plan_int8_conv``), its accumulators equal and its outputs the plain
+    version's."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(39 + m)
+    unit = _int8_unit(n, k, 0, gen)
+    x = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).cuda()
+    acc = x.double() @ unit.kernel_q.double().t()
+    _, splits = tq.plan_int8_conv(m, unit.packed.shape[0], unit.packed.shape[1],
+                                  tq._sm_count(0))
+    before = tq.int8_conv.launches, tq.int8_conv.finish_launches
+    _check_int8(lambda dt: tq.int8_dense(x, unit, None, dt), acc,
+                lambda dt: tq.epilogue_reference(acc, unit.rescale, unit.bias, None, dt))
+    # one conv_kernel launch a call; split K's second pass counted apart
+    assert (tq.int8_conv.launches, tq.int8_conv.finish_launches) == (
+        before[0] + 3, before[1] + (3 if splits > 1 else 0))
+
+
+# (n, h, cin, cout, k, stride, input, outputs, residual): M large enough for
+# two consumer warpgroups (128-row tiles) and more tiles than the card holds
+# blocks, so each persistent block walks several: BN = 128 (Cout 256) and
+# BN = 64 (Cout 64), and the focuser's layer-4 3x3 stride-2 unit at N=512
+TWO_CONSUMERS = [
+    (64, 24, 64, 256, 1, 1, "int8", "q+y", "relu"),    # BN 128, conv3 with relu(b + res)
+    (128, 24, 96, 64, 1, 1, "int8", "q+y", None),      # BN 64
+    (512, 6, 512, 512, 3, 2, "int8", "q", None),       # layer4 conv2, 6^2 -> 3^2
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,stride,inp,outs,res", TWO_CONSUMERS,
+                         ids=[f"{c[2]}-{c[3]}-k{c[4]}s{c[5]}-n{c[0]}" for c in TWO_CONSUMERS])
+def test_cuda_int8_unit_two_consumers_matches_reference(n, h, cin, cout, k, stride, inp,
+                                                        outs, res):
+    """The GEMM kernel's plan at the int8 forward's M (``plan_int8_conv``:
+    two consumer warpgroups, no split, several tiles a block) against the
+    plain version, bf16 with the fused options."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(41 + cin + cout)
+    unit = _int8_unit(cout, cin, k, gen)
+    x = torch.randint(-127, 128, (n, h, h, cin), generator=gen, dtype=torch.int8).cuda()
+    ho = (h + 2 * ((k - 1) // 2) - k) // stride + 1
+    sms = tq._sm_count(0)
+    nc, splits = tq.plan_int8_conv(n * ho * ho, unit.packed.shape[0], unit.packed.shape[1], sms)
+    assert (nc, splits) == (2, 1) and -(-n * ho * ho // 128) * unit.packed.shape[0] > sms
+    residual = (torch.randn((n, ho, ho, cout), generator=gen) * 3).bfloat16().cuda() \
+        if res else None
+    out_scale = torch.tensor(0.047).cuda()
+    before = tq.int8_conv.launches, tq.int8_conv.finish_launches
+    moved = _check_fused(*_fused_case(x, unit, stride, 1, "relu" if res is None else None,
+                                      torch.bfloat16, out_scale, "y" in outs, residual,
+                                      res == "relu"))
+    assert (tq.int8_conv.launches, tq.int8_conv.finish_launches) == (before[0] + 1, before[1])
+    print(f"{moved} double-rounded outputs")
+
+
+FUSED_DW = [(2, 14, 32, 1, "bf16"), (2, 13, 96, 2, "int8"), (2, 9, 24, 2, "int8"),
+            (3, 7, 40, 1, "int8"), (2, 10, 144, 1, "unaligned"), (2, 15, 960, 2, "f32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,h,c,stride,inp", FUSED_DW,
+                         ids=[f"c{c[2]}s{c[3]}-{c[4]}-h{c[1]}" for c in FUSED_DW])
+def test_cuda_int8_dwconv_fused_matches_reference(dtype, n, h, c, stride, inp):
+    """The depthwise kernel's shared-memory tiles with the fused codes: a
+    bf16 or float32 input quantized on load (block_0_0 reads the stem's
+    output), C not a multiple of 16, odd maps at stride 2, a misaligned
+    input; codes alone, and codes beside the compute-dtype output."""
+    from adafocus_torch.ops import quant as tq
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(40 + c)
+    unit = _int8_unit(c, c, 3, gen, depthwise=True)
+    xf = torch.randn((n, h, h, c), generator=gen) * 2
+    x = {"bf16": xf.bfloat16().cuda(), "f32": xf.cuda()}.get(inp)
+    if x is None:
+        x = tq.quantize_act(xf, torch.tensor(0.031)).cuda()
+        x = _unaligned(x) if inp == "unaligned" else x
+    out_scale = torch.tensor(0.02).cuda()
+    before = tq.int8_dwconv.launches
+    for keep in (False, True):
+        _check_fused(*_fused_case(x, unit, stride, c, "relu6", dtype, out_scale, keep, None,
+                                  False))
+    assert tq.int8_dwconv.launches == before + 2
 
 
 @pytest.mark.cuda

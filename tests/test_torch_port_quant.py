@@ -281,6 +281,13 @@ def _spy(monkeypatch, module, codes: list):
     monkeypatch.setattr(module, "quantize_act", spy)
 
 
+def _tap(monkeypatch, codes: list):
+    """The int8 codes each of the port's fused backbone units reads, in the
+    order the units run (``quant_inference.code_tap``): its producer's
+    epilogue writes them, or the unit quantizes its input on load."""
+    monkeypatch.setattr(tqi, "code_tap", lambda name, q: codes.append(q))
+
+
 @pytest.mark.parametrize("kind", ["mbv2", "resnet"])
 def test_backbone_q8_matches_jax(actnet, kind, monkeypatch):
     """Each backbone int8 with JAX's scales: pooled features, and the share
@@ -291,7 +298,7 @@ def test_backbone_q8_matches_jax(actnet, kind, monkeypatch):
     x = _normalized(np.random.RandomState(8), (4, size, size, 3))
     jcodes, tcodes = [], []
     _spy(monkeypatch, jqi, jcodes)
-    _spy(monkeypatch, tqi, tcodes)
+    _tap(monkeypatch, tcodes)
     jfn = jqi.mobilenet_features_q8 if kind == "mbv2" else jqi.resnet_features_q8
     want = jax.jit(lambda v, a: (jfn(v, a, actnet.jscales[group]), jcodes))(
         _subtree(actnet.variables, sub), jnp.asarray(x))
