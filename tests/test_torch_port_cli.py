@@ -34,6 +34,7 @@ from adafocus_torch.train.stages import create_train_state
 from adafocus_tpu import config as jconfig
 from tests.test_torch_port_data import TINY_MODEL, make_miniact
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 
 SYNTH = TINY_MODEL + ["run.platform=cpu", "run.synthetic_data=true",
                       "run.synthetic_videos=8", "run.print_freq=100"]
@@ -123,7 +124,7 @@ def test_config_refuses_unported_keys(override, item):
 @pytest.mark.parametrize("override,item", [
     ("model.classifier=linear", 10), ("run.host_devices=4", 12), ("run.multihost=true", 12),
     ("run.platform=tpu", 12), ("run.quantize=int8", 14)])
-def test_cli_refuses_unported_paths(override, item, tmp_path, monkeypatch):
+def test_cli_refuses_unported_paths(override, item, scratch_path, monkeypatch):
     """The paths once refused as unported, each ported now: the linear head
     (item 10) trains a stage-1 epoch through the CLI; int8 serving (item
     14a) evaluates: it calibrates, prepares its int8 weights and reports
@@ -132,7 +133,7 @@ def test_cli_refuses_unported_paths(override, item, tmp_path, monkeypatch):
     rank 0 logging and writing the checkpoints; several hosts (item 12)
     raise a clear error without a coordinator or torchrun's environment.
     ``run.platform=tpu`` raises: the port runs on GPUs and the CPU."""
-    args = SYNTH + [f"run.ckpt_dir={tmp_path}", override]
+    args = SYNTH + [f"run.ckpt_dir={scratch_path}", override]
     if item == 10:
         from adafocus_torch.models import classifiers as tclassifiers
 
@@ -143,7 +144,7 @@ def test_cli_refuses_unported_paths(override, item, tmp_path, monkeypatch):
     if item == 14:
         res = tevaluate.main(args)
         assert set(res) == {"top1", "top5", "mAP"} and 0.0 <= res["mAP"] <= 1.0
-        assert "int8 PTQ: prepared" in (tmp_path / "evaluate.log").read_text()
+        assert "int8 PTQ: prepared" in (scratch_path / "evaluate.log").read_text()
         return
     if override == "run.host_devices=4":
         proc = subprocess.Popen(
@@ -156,10 +157,10 @@ def test_cli_refuses_unported_paths(override, item, tmp_path, monkeypatch):
             os.killpg(proc.pid, signal.SIGKILL)
             out, _ = proc.communicate()
         assert proc.returncode == 0, out[-4000:]
-        log = (tmp_path / "training.log").read_text()
+        log = (scratch_path / "training.log").read_text()
         assert log.count("data-parallel over 4 ranks (gloo)") == 1
         assert "epoch 0: 2 steps" in log and log.count("checkpoint saved") == 1
-        assert (tmp_path / "checkpoint.pt").exists() and (tmp_path / "model_best.pt").exists()
+        assert (scratch_path / "checkpoint.pt").exists() and (scratch_path / "model_best.pt").exists()
         return
     if override == "run.multihost=true":
         for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):

@@ -41,7 +41,9 @@ from adafocus_torch.ops import patch as tpatch
 from adafocus_torch.ops import quant as tq
 from adafocus_tpu import serving as jserving
 from adafocus_tpu.ops.patch import pad_for_extraction
-from tests.torch_port_common import TINY, abstract_variables, port_model
+from tests.torch_port_common import (  # noqa: F401 (scratch_path is a fixture)
+    TINY, abstract_variables, port_model, scratch_path,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 B = 2
@@ -77,20 +79,20 @@ def _inputs(cfg, seed):
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_export_matches_eager_and_jax(family, tmp_path):
+def test_export_matches_eager_and_jax(family, scratch_path):
     cfg = FAMILIES[family]
     jmodel, variables = abstract_variables(cfg, seed=5)
     model = port_model(cfg, variables)
     frames, small, flat = _inputs(cfg, seed=6)
 
-    path = str(tmp_path / "port.pt2")
+    path = str(scratch_path / "port.pt2")
     tserving.save_exported(tserving.export_inference(model, B), path)
     got = tserving.load_exported(path)(frames, small)
     want = inference_fn(model)(frames, small)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
 
-    jpath = str(tmp_path / "jax.stablehlo")
+    jpath = str(scratch_path / "jax.stablehlo")
     jserving.save_exported(jserving.export_inference(jmodel, variables, batch_size=B), jpath)
     jgot = jserving.load_exported(jpath)(flat, jnp.asarray(small.numpy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=1e-3, rtol=1e-3)
@@ -140,19 +142,19 @@ def test_custom_ops_opcheck(op):
     torch.library.opcheck(fn, args)
 
 
-def test_fresh_process_loads_without_model_code(tmp_path):
+def test_fresh_process_loads_without_model_code(scratch_path):
     model = port_model(TINY, abstract_variables(TINY, seed=5)[1])
-    path = str(tmp_path / "port.pt2")
+    path = str(scratch_path / "port.pt2")
     tserving.save_exported(tserving.export_inference(model, B), path)
     frames, small, _ = _inputs(TINY, seed=8)
-    torch.save({"frames": frames, "frames_small": small}, tmp_path / "inputs.pt")
+    torch.save({"frames": frames, "frames_small": small}, scratch_path / "inputs.pt")
     want = inference_fn(model)(frames, small)
     code = (
         "import sys, torch\n"
         "from adafocus_torch.serving import load_exported\n"
         f"fn = load_exported({path!r})\n"
-        f"x = torch.load({str(tmp_path / 'inputs.pt')!r})\n"
-        f"torch.save(fn(x['frames'], x['frames_small']), {str(tmp_path / 'out.pt')!r})\n"
+        f"x = torch.load({str(scratch_path / 'inputs.pt')!r})\n"
+        f"torch.save(fn(x['frames'], x['frames_small']), {str(scratch_path / 'out.pt')!r})\n"
         "bad = sorted(m for m in sys.modules if m.startswith('adafocus_torch.models')\n"
         "             or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'adafocus_tpu'))\n"
         "assert not bad, bad\n"
@@ -160,5 +162,5 @@ def test_fresh_process_loads_without_model_code(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    got = torch.load(tmp_path / "out.pt")
+    got = torch.load(scratch_path / "out.pt")
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)

@@ -34,6 +34,7 @@ from adafocus_torch import serving as tserving
 from adafocus_torch.benchmark import make_data
 from adafocus_torch.models import gfv as tgfv
 from adafocus_torch.models import quant_inference as tqi
+from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 
 B = 2
 TINY = tgfv.flagship(tiny=True)
@@ -64,10 +65,10 @@ def _model_and_scales(cfg, heads: bool, seed: int = 9):
 
 @pytest.mark.parametrize("heads", [False, True], ids=["int8", "int8+heads"])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_export_int8_matches_eager(family, heads, tmp_path):
+def test_export_int8_matches_eager(family, heads, scratch_path):
     cfg = FAMILIES[family]
     model, scales = _model_and_scales(cfg, heads)
-    path = str(tmp_path / "q8.pt2")
+    path = str(scratch_path / "q8.pt2")
     tserving.save_exported(tserving.export_inference(model, B, mode="int8", scales=scales),
                            path)
     data = make_data(cfg, B, device="cpu", seed=11)
@@ -79,7 +80,7 @@ def test_export_int8_matches_eager(family, heads, tmp_path):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
 
 
-def test_int8_artifact_carries_no_float_conv_weights(tmp_path):
+def test_int8_artifact_carries_no_float_conv_weights(scratch_path):
     """Smaller than the bf16 artifact of the same model; none of the float
     conv weights of a unit it runs in int8 is in its state, the stems' are."""
     model, scales = _model_and_scales(TINY, heads=False)
@@ -91,8 +92,8 @@ def test_int8_artifact_carries_no_float_conv_weights(tmp_path):
     assert "qw_focuser_layer1_0_conv2_packed" in ep8.state_dict
     sizes = {}
     for mode, ep in (("int8", ep8), ("bf16", tserving.export_inference(model, B))):
-        tserving.save_exported(ep, str(tmp_path / f"{mode}.pt2"))
-        sizes[mode] = os.path.getsize(tmp_path / f"{mode}.pt2")
+        tserving.save_exported(ep, str(scratch_path / f"{mode}.pt2"))
+        sizes[mode] = os.path.getsize(scratch_path / f"{mode}.pt2")
     assert sizes["int8"] < sizes["bf16"] / 2, sizes
 
 

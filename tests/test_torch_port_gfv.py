@@ -99,8 +99,9 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def _port_files():
     return sorted((ROOT / "adafocus_torch").rglob("*.py")) + [
-        ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_patch_times.py",
-                                  "port_videos_per_s.py", "tests/torch_port_parallel_workers.py")]
+        ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_miniact.py",
+                                  "port_patch_times.py", "port_videos_per_s.py",
+                                  "tests/torch_port_parallel_workers.py")]
 
 
 def test_port_imports_no_jax():
@@ -117,7 +118,7 @@ def test_port_imports_no_jax():
                 "adafocus_torch/parallel/mesh.py", "adafocus_torch/parallel/dryrun.py",
                 "adafocus_torch/utils/torch_weights.py", "adafocus_torch/utils/profiling.py",
                 "adafocus_torch/utils/device_lock.py", "adafocus_torch/ops/flops.py",
-                "tests/torch_port_parallel_workers.py"):
+                "tests/torch_port_parallel_workers.py", "port_miniact.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

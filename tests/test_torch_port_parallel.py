@@ -77,7 +77,7 @@ from tests.test_torch_port_sthsth_train import _batch as sthsth_batch
 from tests.test_torch_port_sthsth_train import _keep
 from tests.test_torch_port_train import _dropout_interceptor
 from tests.torch_port_common import (
-    TRAIN_CFG, abstract_variables, port_config, state_dict_from_jax, train_batch,
+    TRAIN_CFG, abstract_variables, port_config, removed_after, state_dict_from_jax, train_batch,
 )
 
 B = 4                          # the global batch, B // 2 a replica
@@ -302,10 +302,17 @@ def _draws(name):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case's JAX reference and both ranks' results, the returns and
-    the PPO update's. A second interpreter computes JAX's ``SECOND`` steps;
-    here the other JAX steps compile on threads while the draws are taken,
-    and then while the two ranks run."""
+    the PPO update's, all in memory: their directory is removed once they
+    are loaded."""
     path = str(tmp_path_factory.mktemp("parallel"))
+    with removed_after(path):
+        return _runs(path)
+
+
+def _runs(path):
+    """``runs`` through ``path``. A second interpreter computes JAX's
+    ``SECOND`` steps; here the other JAX steps compile on threads while the
+    draws are taken, and then while the two ranks run."""
     second = _start(["tests.test_torch_port_parallel", path, *SECOND])
     procs = [(second, "JAX's second interpreter")]
     try:
@@ -343,6 +350,8 @@ def runs(tmp_path_factory):
     finally:
         for proc, what in procs:
             _wait(proc, what)
+    # both ranks have exited: nothing reads the cases any longer
+    os.remove(os.path.join(path, "cases.pt"))
     for name in SECOND:
         jax_out[name] = torch.load(os.path.join(path, f"{name}.jax.pt"), weights_only=False)
     ranks = {name: [torch.load(os.path.join(path, f"{name}.rank{r}.pt"), weights_only=False)

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from tests.test_torch_port_data import TINY_MODEL, one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_port_common import removed_after
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 400
@@ -59,7 +60,14 @@ def _finish(proc, log_path):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
+    """(directory, {job: (exit code, output)}); the directory, with the
+    runs' checkpoints and results, is removed after the module's tests."""
     tmp = tmp_path_factory.mktemp("parallel_cli")
+    with removed_after(tmp):
+        yield _runs(tmp)
+
+
+def _runs(tmp):
     worker = ["-m", "tests.torch_port_parallel_workers"]
     stage3 = SYNTH + ["run.stage=3", "model.dtype=float64", f"run.synthetic_videos={VIDEOS}"]
     stage1 = SYNTH + ["run.stage=1", f"run.synthetic_videos={VIDEOS}"]

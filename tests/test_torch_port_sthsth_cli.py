@@ -60,6 +60,7 @@ from tests.test_torch_port_cli import tiny_miniact
 from tests.test_torch_port_data import ATOL, jax_draws, make_miniact
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_train import _dropout_interceptor
+from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 
 BATCH = 24
 UPDATE_TOL = 1e-4
@@ -260,7 +261,7 @@ def test_sthsth_train_clis_save_the_same_weights(runs):
                                            "parameters", err)
 
 
-def test_port_cli_trains_sthsth_stages_and_evaluates(miniact_root, tmp_path):
+def test_port_cli_trains_sthsth_stages_and_evaluates(miniact_root, scratch_path):
     """The port's CLIs alone at the tiny sizes, float32: stage 1, stage 2
     warm-started from it with the continuous and with the discrete policy,
     stage 3 from the continuous stage 2, then evaluate with every policy.
@@ -271,7 +272,7 @@ def test_port_cli_trains_sthsth_stages_and_evaluates(miniact_root, tmp_path):
     from adafocus_torch.cli import evaluate as tevaluate
 
     base = sthsth_args(miniact_root) + ["run.epochs=1"]
-    ck = tmp_path
+    ck = scratch_path
     res = ttrain.main(base + ["run.stage=1", f"run.ckpt_dir={ck}/s1"])
     assert np.isfinite(res["best_acc"])
     stage1 = tckpt.load_checkpoint(f"{ck}/s1", best=True)["components"]

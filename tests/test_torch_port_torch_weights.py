@@ -35,6 +35,7 @@ from adafocus_tpu.models import resnet as jres
 from adafocus_tpu.utils import torch_weights as jw
 from tests.test_torch_parity import _randomize_bn_stats, _tv_to_tonylins
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 from tests.torch_ref_models import torch_mobilenet_v2, torch_resnet18, torch_resnet50
 
 ATOL, RTOL = 5e-4, 1e-4
@@ -116,7 +117,7 @@ def test_merge_into_matches_jax_on_a_wrong_head():
 
 @pytest.mark.parametrize("arch,component", [("resnet50", "focuser"),
                                             ("mobilenet_v2", "glancer")])
-def test_cli_checkpoint_warm_starts_stage1(tmp_path, arch, component):
+def test_cli_checkpoint_warm_starts_stage1(scratch_path, arch, component):
     """``python -m adafocus_torch.utils.torch_weights`` (called in process):
     its ``checkpoint.pt`` is the port's format, and the stage-1 warm start
     loads the converted component into a fresh train state, every tensor
@@ -126,9 +127,9 @@ def test_cli_checkpoint_warm_starts_stage1(tmp_path, arch, component):
 
     make = torch_resnet50 if arch == "resnet50" else torch_mobilenet_v2
     sd = _ref_state_dict(make, seed=6)
-    pth = tmp_path / "ref.pth"
+    pth = scratch_path / "ref.pth"
     torch.save({"state_dict": sd, "epoch": 3}, pth)   # a training checkpoint's wrapper
-    out = tmp_path / "converted"
+    out = scratch_path / "converted"
     path = tw.convert_checkpoint_cli([str(pth), str(out), "--arch", arch])
     tree = tckpt.load_checkpoint(str(out))
     assert path == str(out / "checkpoint.pt") and list(tree["components"]) == [component]

@@ -5,13 +5,21 @@ numpy, every BatchNorm gets random scale, bias and running statistics (fresh
 ones are trivially 1/0/0/1 and would hide a swapped or dropped leaf), and
 the same trees feed both the flax modules and, through the weight bridge,
 the port.
+
+Tests that write checkpoints, cases or artifacts take ``scratch_path``
+(module fixtures ``removed_after``): pytest keeps the temporary directories
+of its last three runs, and a run's ~190 MB checkpoints would otherwise
+stay on the disk after it.
 """
 
+import contextlib
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax.core import unfreeze
 
@@ -45,6 +53,23 @@ FLAGSHIP_WIDTH = GFVConfig(
 # they agree, so the train steps are compared in float64.
 TRAIN_CFG = dataclasses.replace(TINY, image_size=48, glance_size=32, patch_size=32)
 TRAIN_B = 4
+
+
+@contextlib.contextmanager
+def removed_after(path):
+    """``path``, removed with everything in it when the block ends, whether
+    it ended well or raised."""
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+@pytest.fixture
+def scratch_path(tmp_path):
+    """``tmp_path``, removed after the test whether it passed or failed."""
+    with removed_after(tmp_path):
+        yield tmp_path
 
 
 def _map_tree(fn, tree, path=()):
