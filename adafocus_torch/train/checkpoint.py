@@ -105,10 +105,24 @@ def restore_train_state(state, tree: Dict[str, Any]):
     if state.optimizer is not None:
         state.optimizer.load_state_dict(tree["optimizer"])
         state.scheduler.load_state_dict(tree["scheduler"])
+        _rates_at_count(state.scheduler)
     if state.ppo is not None:
         state.ppo.optimizer.load_state_dict(tree["ppo"]["optimizer"])
         state.ppo.step = int(tree["ppo"]["step"])
     return state
+
+
+def _rates_at_count(scheduler: torch.optim.lr_scheduler.LambdaLR) -> None:
+    """Sets each parameter group's learning rate to this run's schedule at
+    the restored update count. The optimizer's saved rates are the saved
+    run's schedule's, which differs when the resumed run asks for other
+    epochs; the JAX package's optax evaluates the current schedule at the
+    count."""
+    rates = [base * factor(scheduler.last_epoch)
+             for base, factor in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, rate in zip(scheduler.optimizer.param_groups, rates):
+        group["lr"] = rate
+    scheduler._last_lr = rates
 
 
 def _merge_compatible(fresh: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]

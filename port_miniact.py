@@ -25,6 +25,9 @@ done-marker exists, an evaluation when its key is in the results):
              for every seed.
   frontier   AdaFocus+ with the straight-through selector at K=4 frames,
              stages 1 and 2 from the base stage 1 for every seed.
+  s0seeds    stage 0 alone at every seed of ``--s0-seeds``, validated every
+             epoch, in ``--s0-dtype``: the spread of stage 0 over seeds
+             (not part of the JAX harness's recipe, and not run unless named).
 
 Every training and evaluation runs as a subprocess of the port's CLI
 (``python -m adafocus_torch.cli.train`` / ``cli.evaluate``) with the
@@ -40,6 +43,10 @@ full profile only).
     python3 port_miniact.py --tiny --platform cpu    # the tiny profile, on the CPU
     python3 port_miniact.py --base-seed 1009 --phases dataset,base,baselines,int8
                                                      # the base's rows again at another seed
+    python3 port_miniact.py --phases dataset,s0seeds --s0-seeds 1007,1009
+                                                     # stage 0's curve at each seed
+    python3 port_miniact.py --merge other_results.json
+                                                     # another call's new keys
 
 It runs on the GPU, holding the device lock (``utils/device_lock.py``),
 unless ``--platform cpu`` is given; without a GPU and without that flag it
@@ -60,6 +67,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("dataset", "base", "baselines", "int8", "sthhard", "frontier")
+EXTRA_PHASES = ("s0seeds",)   # run only when named in --phases
+S0_SEEDS = (1007, 1009, 1013, 1019, 1021, 1031, 1033, 1039)
+TAKEOFF = 0.5   # the validation top-1 that counts stage 0 as taken off
 POLICIES = ("learned", "random", "center", "oracle")
 BUDGET = 4    # the frontier's one point: the ST selector at K=4 frames
 SEEDS = (1007, 1009, 1013)   # run.seed of the seed-replicated phases (sthhard, frontier)
@@ -118,6 +128,16 @@ def parse_best(out: str) -> float:
     return float(m[-1]) if m else float("nan")
 
 
+def parse_curve(out: str) -> dict:
+    """Every validation row of a training run's output, in order: top-1,
+    top-5 and (where logged) mAP, each a list over the validations."""
+    rows = re.findall(r"\* val: top1=([0-9.]+) top5=([0-9.]+)(?: mAP=([0-9.]+))?", out)
+    curve = {"top1": [float(r[0]) for r in rows], "top5": [float(r[1]) for r in rows]}
+    if rows and all(r[2] for r in rows):
+        curve["mAP"] = [float(r[2]) for r in rows]
+    return curve
+
+
 def parse_anytime(out: str):
     m = re.findall(r"anytime mAP per timestep: ([0-9. ]+)", out)
     return [float(x) for x in m[-1].split()] if m else None
@@ -155,14 +175,16 @@ class Runner:
     def ck(self, name: str) -> str:
         return os.path.join(self.work, f"ck_{name}")
 
-    def run(self, module: str, argv, name: str) -> str:
-        """``python -m module argv`` from the repository root; its output
-        goes to ``<logdir>/<name>.log`` and its wall time to
-        ``results['runs']``. Raises on a non-zero exit."""
+    def run(self, module: str, argv, name: str, env=None) -> str:
+        """``python -m module argv`` from the repository root, with ``env``
+        added to the environment; its output goes to ``<logdir>/<name>.log``
+        and its wall time to ``results['runs']``. Raises on a non-zero
+        exit."""
         cmd = [sys.executable, "-m", module] + list(argv)
         print(f"  $ python -m {module} {' '.join(argv)}", flush=True)
         t0 = time.time()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True)
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              env={**os.environ, **(env or {})})
         seconds = time.time() - t0
         out = proc.stdout + proc.stderr
         os.makedirs(self.logs, exist_ok=True)
@@ -314,6 +336,84 @@ class Runner:
             keys.append(key)
         self.aggregate(f"{p}/st_K{BUDGET}", keys)
 
+    def phase_s0seeds(self):
+        """Stage 0 alone at each seed of ``--s0-seeds``, validated every epoch,
+        ``model.dtype`` from ``--s0-dtype``. bfloat16 runs with
+        ``model.remat=false`` (remat recomputes exactly: the same validation rows);
+        float32 keeps remat on, its activations taking twice bfloat16's
+        memory, and runs with ``NVIDIA_TF32_OVERRIDE=0``, so that cuDNN's
+        convolutions do not round their inputs to TF32. Keys
+        ``s0seeds/<dtype>@<seed>``: the best top-1, the first epoch (from 0)
+        whose validation top-1 reaches ``TAKEOFF`` (None if none does), and
+        the validation curve; ``s0seeds/<dtype>``: over the seeds, the best
+        top-1's and the take-off epoch's mean and population standard
+        deviation, each seed's take-off epoch, and how many never reach
+        ``TAKEOFF``."""
+        dtype = self.args.s0_dtype or ("float32" if self.args.tiny else "bfloat16")
+        f32 = dtype == "float32"
+        drop = ("model.remat=", "run.eval_freq=", "run.seed=", "model.dtype=")
+        b = [o for o in self.base if not o.startswith(drop)]
+        b += [f"model.dtype={dtype}", f"model.remat={'true' if f32 else 'false'}",
+              "run.eval_freq=1", "run.stage=0", f"run.epochs={self.epochs['s0']}"]
+        env = {"NVIDIA_TF32_OVERRIDE": "0"} if f32 else None
+        for seed in self.args.s0_seeds:
+            key = f"s0seeds/{dtype}@{seed}"
+            if key in self.results:
+                continue
+            ck = self.ck(f"s0seed_{dtype}_{seed}")
+            out = self.run("adafocus_torch.cli.train", b + [f"run.seed={seed}",
+                                                           f"run.ckpt_dir={ck}"],
+                           f"train_s0seed_{dtype}_{seed}", env)
+            curve = parse_curve(out)
+            first = next((e for e, v in enumerate(curve["top1"]) if v >= TAKEOFF), None)
+            self.results[key] = {"best_top1": parse_best(out), "first_epoch_ge_0.5": first,
+                                 "curve": curve}
+            self.save()
+            for name in ("checkpoint.pt", "model_best.pt"):   # nothing reads them
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(os.path.join(ck, name))
+        s0_spread(self.results)
+        self.save()
+
+
+def s0_spread(results: dict) -> None:
+    """``s0seeds/<dtype>`` of every dtype in ``results``, from its
+    ``s0seeds/<dtype>@<seed>`` rows (``Runner.phase_s0seeds``)."""
+    by_dtype = {}
+    for k, v in results.items():
+        if k.startswith("s0seeds/") and "@" in k:
+            dtype, seed = k[len("s0seeds/"):].split("@")
+            by_dtype.setdefault(dtype, {})[seed] = v
+    for dtype, rows in by_dtype.items():
+        best = [r["best_top1"] for r in rows.values()]
+        first = {s: r["first_epoch_ge_0.5"] for s, r in sorted(rows.items())}
+        took_off = [e for e in first.values() if e is not None]
+        results[f"s0seeds/{dtype}"] = {
+            "best_top1": statistics.mean(best), "best_top1_std": statistics.pstdev(best),
+            "first_epoch_ge_0.5": statistics.mean(took_off) if took_off else None,
+            "first_epoch_ge_0.5_std": statistics.pstdev(took_off) if took_off else None,
+            "per_seed_first_epoch_ge_0.5": first,
+            "n_never": len(first) - len(took_off), "n_seeds": len(best)}
+
+
+def merge(results_path: str, other_path: str) -> None:
+    """Adds to ``results_path`` the keys of ``other_path`` (the results of a
+    run in another call) that it lacks, and their runs' seconds under
+    ``runs``; changes no key it has, then recomputes the stage-0 spreads."""
+    with open(results_path) as f:
+        results = json.load(f)
+    with open(other_path) as f:
+        other = json.load(f)
+    for k, v in other.items():
+        if k not in results and k not in ("device", "phase_seconds"):
+            results[k] = v
+    runs = results.setdefault("runs", {})
+    for k, v in other.get("runs", {}).items():
+        runs.setdefault(k, v)
+    s0_spread(results)
+    with open(results_path, "w") as f:
+        json.dump(results, f, indent=1)
+
 
 # -- the comparison with the JAX package's results ------------------------------
 
@@ -425,12 +525,26 @@ def main(argv=None) -> int:
                     help="run the base at this run.seed: its checkpoints and keys take "
                          "the seed (train/s0@<seed>, eval/learned@<seed>, ...), and sthhard "
                          "and frontier start from it (keys sthhard@base<seed>/...)")
+    ap.add_argument("--s0-seeds", default=",".join(map(str, S0_SEEDS)),
+                    type=lambda v: [int(x) for x in v.split(",") if x.strip()],
+                    help="the seeds of the s0seeds phase")
+    ap.add_argument("--s0-dtype", default=None, choices=("bfloat16", "float32"),
+                    help="model.dtype of the s0seeds phase (default bfloat16; float32 "
+                         "with --tiny)")
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--merge", default="", metavar="OTHER",
+                    help="run nothing: add the keys of the results file OTHER that "
+                         "--results lacks (a run in another call), then recompute the "
+                         "stage-0 spreads")
     args = ap.parse_args(argv)
+    if args.merge:
+        merge(args.results, args.merge)
+        return 0
     phases = [p.strip() for p in args.phases.split(",") if p.strip()]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES + EXTRA_PHASES)
     if unknown:
-        ap.error(f"unknown phases {sorted(unknown)}; choose from {','.join(PHASES)}")
+        ap.error(f"unknown phases {sorted(unknown)}; choose from "
+                 f"{','.join(PHASES + EXTRA_PHASES)}")
 
     lock = contextlib.nullcontext()
     if args.platform == "cuda":

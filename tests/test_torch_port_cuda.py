@@ -13,7 +13,9 @@ actions.
 
 Under autograd the patch kernel still launches once a forward, and the
 backward (a scatter in plain PyTorch) on the card equals the CPU's bit for
-bit. One stage-1 train step at the tiny configuration on the card leaves
+bit. The bf16 stage-0 step's dtype map (``tests/torch_port_dtypes.py``) on
+the card equals the CPU's, which ``tests/test_torch_port_train_bf16.py``
+holds equal to JAX's. One stage-1 train step at the tiny configuration on the card leaves
 the frozen glancer and policy bit-identical; one stage-2 (PPO) step launches
 the patch kernel twice, leaves everything but the policy bit-identical and
 moves every policy parameter. The policy's sampler draws each class from a
@@ -57,6 +59,10 @@ configuration in its temporal-shift split (``use_res=False``, N=4): the
 glancer's residual blocks at 224^2 and every focuser bottleneck at 144^2
 patches (36^2 to 5^2 maps), the down blocks without their ``down``.
 """
+
+import dataclasses
+import importlib.util
+import os
 
 import pytest
 import torch
@@ -185,6 +191,44 @@ def test_cuda_patch_function_matches_cpu(from_actions, dtype):
         results.append((out.detach().cpu(), src.grad.cpu()))
     assert torch.equal(results[0][0], results[1][0])
     assert torch.equal(results[0][1], results[1][1])
+
+
+def _dtypes_helper():
+    """tests/torch_port_dtypes.py, loaded by its path: on the card's machine
+    another package named ``tests`` may come first on ``sys.path``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_port_dtypes.py")
+    spec = importlib.util.spec_from_file_location("torch_port_dtypes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_stage0_dtypes_match_cpu():
+    """One bf16 stage-0 step over float32 parameters at TRAIN_CFG's sizes on
+    the card and on the CPU, from the same weights and batch: the same dtype
+    at every point and the same gradient dtypes. CUDA's autocast runs ops in
+    float32 that the CPU's leaves in bf16 (sum, exp, log, softmax), so the
+    CPU test against JAX does not speak for the card by itself."""
+    _needs_gpu()
+    helper = _dtypes_helper()
+    cfg = dataclasses.replace(tgfv.flagship(tiny=True), image_size=48, glance_size=32,
+                              patch_size=32, dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    b, t, s, g = 4, cfg.num_frames, cfg.image_size, cfg.glance_size
+    batch = {"frames": torch.randn((b, t, s, s, 3), generator=gen).to(torch.bfloat16),
+             "frames_small": torch.randn((b, t, g, g, 3), generator=gen).to(torch.bfloat16),
+             "labels": torch.tensor([1, 4, 7, 2])}
+    keep = torch.rand((b * t, cfg.glance_dim), generator=gen) < 0.8
+    maps = {}
+    for device in ("cpu", "cuda"):
+        model = tgfv.GFV(cfg, device=device, generator=torch.Generator().manual_seed(0),
+                         param_dtype=torch.float32)
+        points = helper.stage0_dtypes(model, {k: v.to(device) for k, v in batch.items()},
+                                      keep.to(device))
+        maps[device] = (points, helper.grad_dtypes(model))
+    assert maps["cuda"][0] == maps["cpu"][0]
+    assert maps["cuda"][1] == maps["cpu"][1]
 
 
 @pytest.mark.cuda

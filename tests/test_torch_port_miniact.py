@@ -102,3 +102,50 @@ def test_runner_needs_the_gpu_unless_asked(scratch_path):
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "--platform cpu" in proc.stderr
     assert not (scratch_path / "data").exists() and not (scratch_path / "results.json").exists()
+
+
+def _port_miniact():
+    """``port_miniact.py`` as a module, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("port_miniact",
+                                                  os.path.join(ROOT, "port_miniact.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_parse_curve_reads_every_validation():
+    out = ("epoch 0: 38 steps\n  * val: top1=0.0200 top5=0.0975 mAP=0.0372\n"
+           "  * checkpoint saved\nepoch 1: 38 steps\n  * val: top1=0.5650 top5=0.9600 mAP=0.6661\n")
+    curve = _port_miniact().parse_curve(out)
+    assert curve == {"top1": [0.02, 0.565], "top5": [0.0975, 0.96], "mAP": [0.0372, 0.6661]}
+    assert _port_miniact().parse_curve("  * val: top1=0.5000 top5=1.0000\n") == \
+        {"top1": [0.5], "top5": [1.0]}
+
+
+def test_merge_adds_new_keys_only_and_the_spread(scratch_path):
+    """``--merge``: another call's keys that the results lack are added with
+    their runs' seconds; no key the results have changes (nor ``device``);
+    the stage-0 spread is computed over every seed's row."""
+    mod = _port_miniact()
+    mine, other = scratch_path / "mine.json", scratch_path / "other.json"
+    base = {"runs": {"dataset": {"seconds": 1.0}}, "device": "card A", "train/s0": 0.62,
+            "s0seeds/bfloat16@1": {"best_top1": 0.6, "first_epoch_ge_0.5": 18, "curve": {}}}
+    mine.write_text(json.dumps(base))
+    other.write_text(json.dumps({
+        "runs": {"dataset": {"seconds": 2.0}, "train_s0seed_bfloat16_2": {"seconds": 3.0}},
+        "device": "card B", "train/s0": 0.9, "phase_seconds": {"s0seeds": 4.0},
+        "s0seeds/bfloat16@2": {"best_top1": 0.9, "first_epoch_ge_0.5": 12, "curve": {}},
+        "s0seeds/bfloat16@3": {"best_top1": 0.3, "first_epoch_ge_0.5": None, "curve": {}}}))
+    assert mod.main(["--results", str(mine), "--merge", str(other)]) == 0
+    got = json.loads(mine.read_text())
+    for key in ("device", "train/s0", "s0seeds/bfloat16@1"):
+        assert got[key] == base[key], key
+    assert "phase_seconds" not in got
+    assert got["runs"] == {"dataset": {"seconds": 1.0}, "train_s0seed_bfloat16_2": {"seconds": 3.0}}
+    spread = got["s0seeds/bfloat16"]
+    assert spread["n_seeds"] == 3 and spread["n_never"] == 1
+    assert math.isclose(spread["best_top1"], 0.6) and math.isclose(spread["first_epoch_ge_0.5"], 15)
+    assert math.isclose(spread["best_top1_std"], math.sqrt(0.06))
+    assert spread["per_seed_first_epoch_ge_0.5"] == {"1": 18, "2": 12, "3": None}
