@@ -55,9 +55,24 @@
 // block_gemm products (conv1; conv2 as one product 9 * chid deep whose A
 // gathers the taps; conv3 + downsample in one accumulator).
 
+#include <type_traits>
+
 #include "fused_gemm.cuh"
 
-namespace {
+// The build compiles this file as ten units at once, FUSED_BOTTLENECK_PART
+// = 0 to 9 (ops/_kernels.py PARTS), and links them into one library: unit
+// p < 8 holds the bf16 instance bottleneck_tc_kernel<kUnitBn2[p],
+// kUnitWide[p]>, unit 8 the float32 kernel, unit 9 the entry points at the
+// end, which call the instances' launchers across the units.
+#if FUSED_BOTTLENECK_PART == 9
+#define FUSED_BOTTLENECK_KERNELS 0   // this unit defines no launcher
+#define FUSED_BOTTLENECK_ENTRY 1     // this unit defines the entry points
+#else
+#define FUSED_BOTTLENECK_KERNELS 1
+#define FUSED_BOTTLENECK_ENTRY 0
+#endif
+
+namespace bneck {
 
 using namespace fused;
 
@@ -477,7 +492,7 @@ __global__ void __launch_bounds__(kThreads, BN2 <= 64 ? 2 : 1)
       });
 }
 
-size_t smem_bytes(const BottleneckArgs& p, int elem) {
+inline size_t smem_bytes(const BottleneckArgs& p, int elem) {
   if (elem == 2)
     return (size_t)tc_layout(p.g, p.rh_max, p.rw_max, p.chid, p.ns, p.stages, p.depth, p.wide)
         .total;
@@ -495,19 +510,6 @@ cudaError_t launch(Kernel kernel, const BottleneckArgs& p, size_t smem, cudaStre
   return cudaGetLastError();
 }
 
-// f(the bf16 kernel instance for conv2 width bn2 per warpgroup, wide or
-// not; wide only from 64)
-template <typename F>
-cudaError_t with_tc_kernel(int bn2, int wide, F f) {
-  switch (bn2) {
-    case 16: return f(bottleneck_tc_kernel<16, false>);
-    case 32: return f(bottleneck_tc_kernel<32, false>);
-    case 64: return wide ? f(bottleneck_tc_kernel<64, true>) : f(bottleneck_tc_kernel<64, false>);
-    case 128: return wide ? f(bottleneck_tc_kernel<128, true>) : f(bottleneck_tc_kernel<128, false>);
-    default: return wide ? f(bottleneck_tc_kernel<256, true>) : f(bottleneck_tc_kernel<256, false>);
-  }
-}
-
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, int smem, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -515,7 +517,73 @@ cudaError_t occupancy(Kernel kernel, int smem, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
 }
 
-}  // namespace
+// Each kernel instance's launch and occupancy, the units' interface.
+template <int BN2, bool WIDE>
+cudaError_t tc_launch(const BottleneckArgs& p, size_t smem, cudaStream_t stream);
+template <int BN2, bool WIDE>
+cudaError_t tc_occupancy(int smem, int* blocks);
+cudaError_t f32_launch(const BottleneckArgs& p, size_t smem, cudaStream_t stream);
+cudaError_t f32_occupancy(int smem, int* blocks);
+
+#if FUSED_BOTTLENECK_KERNELS
+template <int BN2, bool WIDE>
+cudaError_t tc_launch(const BottleneckArgs& p, size_t smem, cudaStream_t stream) {
+  return launch(bottleneck_tc_kernel<BN2, WIDE>, p, smem, stream);
+}
+
+template <int BN2, bool WIDE>
+cudaError_t tc_occupancy(int smem, int* blocks) {
+  return occupancy(bottleneck_tc_kernel<BN2, WIDE>, smem, blocks);
+}
+#endif  // FUSED_BOTTLENECK_KERNELS
+
+// the bf16 instances, unit by unit: conv2 width bn2 per warpgroup, wide or
+// not (wide only from 64)
+constexpr int kUnitBn2[8] = {16, 32, 64, 64, 128, 128, 256, 256};
+constexpr bool kUnitWide[8] = {false, false, false, true, false, true, false, true};
+
+#if FUSED_BOTTLENECK_PART < 8
+template cudaError_t tc_launch<kUnitBn2[FUSED_BOTTLENECK_PART], kUnitWide[FUSED_BOTTLENECK_PART]>(
+    const BottleneckArgs& p, size_t smem, cudaStream_t stream);
+template cudaError_t tc_occupancy<kUnitBn2[FUSED_BOTTLENECK_PART],
+                                  kUnitWide[FUSED_BOTTLENECK_PART]>(int smem, int* blocks);
+#endif
+
+#if FUSED_BOTTLENECK_PART == 8
+cudaError_t f32_launch(const BottleneckArgs& p, size_t smem, cudaStream_t stream) {
+  return launch(bottleneck_kernel<float>, p, smem, stream);
+}
+
+cudaError_t f32_occupancy(int smem, int* blocks) {
+  return occupancy(bottleneck_kernel<float>, smem, blocks);
+}
+#endif
+
+#if FUSED_BOTTLENECK_ENTRY
+// f(bn2, wide) with the bf16 instance's template arguments as types
+// (std::integral_constant), for conv2 width bn2 per warpgroup, wide or not
+template <typename F>
+cudaError_t with_tc(int bn2, int wide, F f) {
+  using std::false_type;
+  using std::integral_constant;
+  using std::true_type;
+  switch (bn2) {
+    case 16: return f(integral_constant<int, 16>{}, false_type{});
+    case 32: return f(integral_constant<int, 32>{}, false_type{});
+    case 64: return wide ? f(integral_constant<int, 64>{}, true_type{})
+                         : f(integral_constant<int, 64>{}, false_type{});
+    case 128: return wide ? f(integral_constant<int, 128>{}, true_type{})
+                          : f(integral_constant<int, 128>{}, false_type{});
+    default: return wide ? f(integral_constant<int, 256>{}, true_type{})
+                         : f(integral_constant<int, 256>{}, false_type{});
+  }
+}
+#endif  // FUSED_BOTTLENECK_ENTRY
+
+}  // namespace bneck
+
+#if FUSED_BOTTLENECK_ENTRY
+using namespace bneck;
 
 // Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
 // for arguments the kernel does not take. elem_size: 4 (float32) or 2 (bf16);
@@ -574,10 +642,11 @@ extern "C" int fused_bottleneck(const void* x, const void* w1, const void* b1, c
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_size) {
-    case 4: return (int)launch(bottleneck_kernel<float>, p, smem, s);
+    case 4: return (int)f32_launch(p, smem, s);
     case 2:
-      return (int)with_tc_kernel(bn2_of(chid, ns), wide,
-                                 [&](auto k) { return launch(k, p, smem, s); });
+      return (int)with_tc(bn2_of(chid, ns), wide, [&](auto bn, auto wd) {
+        return tc_launch<decltype(bn)::value, decltype(wd)::value>(p, smem, s);
+      });
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -587,9 +656,11 @@ extern "C" int fused_bottleneck(const void* x, const void* w1, const void* b1, c
 extern "C" int fused_bottleneck_blocks_per_sm(int chid, int ns, int wide, int elem_size,
                                               int smem) {
   int blocks = 0;
-  cudaError_t err = elem_size == 4 ? occupancy(bottleneck_kernel<float>, smem, &blocks)
-                                   : with_tc_kernel(bn2_of(chid, ns), wide, [&](auto k) {
-                                       return occupancy(k, smem, &blocks);
+  cudaError_t err = elem_size == 4 ? f32_occupancy(smem, &blocks)
+                                   : with_tc(bn2_of(chid, ns), wide, [&](auto bn, auto wd) {
+                                       return tc_occupancy<decltype(bn)::value,
+                                                           decltype(wd)::value>(smem, &blocks);
                                      });
   return err == cudaSuccess ? blocks : 0;
 }
+#endif  // FUSED_BOTTLENECK_ENTRY

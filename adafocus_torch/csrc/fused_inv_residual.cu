@@ -52,9 +52,25 @@
 // into `hid`, depthwise into `dwt`, and the chunk's project added into a
 // float32 tile in shared memory.
 
+#include <type_traits>
+
 #include "fused_gemm.cuh"
 
-namespace {
+// The build compiles this file as ten units at once,
+// FUSED_INV_RESIDUAL_PART = 0 to 9 (ops/_kernels.py PARTS), and links them
+// into one library: unit p < 8 holds the bf16 instance
+// inv_residual_tc_kernel<kUnitBnp[p]>, unit 8 the float32 kernel, unit 9
+// the entry points at the end, which call the instances' launchers across
+// the units.
+#if FUSED_INV_RESIDUAL_PART == 9
+#define FUSED_INV_RESIDUAL_KERNELS 0   // this unit defines no launcher
+#define FUSED_INV_RESIDUAL_ENTRY 1     // this unit defines the entry points
+#else
+#define FUSED_INV_RESIDUAL_KERNELS 1
+#define FUSED_INV_RESIDUAL_ENTRY 0
+#endif
+
+namespace invres {
 
 using namespace fused;
 
@@ -359,7 +375,7 @@ __global__ void __launch_bounds__(kThreads, BNP <= 32 ? 3 : BNP <= 96 ? 2 : 1)
   });
 }
 
-size_t smem_bytes(const InvResArgs& p, int elem) {
+inline size_t smem_bytes(const InvResArgs& p, int elem) {
   if (elem == 2)
     return (size_t)tc_layout(p.g, p.rh_max, p.rw_max, p.cin, p.cout, p.expand, p.ns).total;
   return (size_t)kStageBytes + (size_t)p.g * p.th * p.tw * p.cout * 4 +
@@ -376,21 +392,6 @@ cudaError_t launch(Kernel kernel, const InvResArgs& p, size_t smem, cudaStream_t
   return cudaGetLastError();
 }
 
-// f(the bf16 kernel instance for project width bnp per warpgroup)
-template <typename F>
-cudaError_t with_tc_kernel(int bnp, F f) {
-  switch (bnp) {
-    case 16: return f(inv_residual_tc_kernel<16>);
-    case 24: return f(inv_residual_tc_kernel<24>);
-    case 32: return f(inv_residual_tc_kernel<32>);
-    case 64: return f(inv_residual_tc_kernel<64>);
-    case 96: return f(inv_residual_tc_kernel<96>);
-    case 128: return f(inv_residual_tc_kernel<128>);
-    case 160: return f(inv_residual_tc_kernel<160>);
-    default: return f(inv_residual_tc_kernel<256>);
-  }
-}
-
 template <typename Kernel>
 cudaError_t occupancy(Kernel kernel, int smem, int* blocks) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -398,7 +399,69 @@ cudaError_t occupancy(Kernel kernel, int smem, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
 }
 
-}  // namespace
+// Each kernel instance's launch and occupancy, the units' interface.
+template <int BNP>
+cudaError_t tc_launch(const InvResArgs& p, size_t smem, cudaStream_t stream);
+template <int BNP>
+cudaError_t tc_occupancy(int smem, int* blocks);
+cudaError_t f32_launch(const InvResArgs& p, size_t smem, cudaStream_t stream);
+cudaError_t f32_occupancy(int smem, int* blocks);
+
+#if FUSED_INV_RESIDUAL_KERNELS
+template <int BNP>
+cudaError_t tc_launch(const InvResArgs& p, size_t smem, cudaStream_t stream) {
+  return launch(inv_residual_tc_kernel<BNP>, p, smem, stream);
+}
+
+template <int BNP>
+cudaError_t tc_occupancy(int smem, int* blocks) {
+  return occupancy(inv_residual_tc_kernel<BNP>, smem, blocks);
+}
+#endif  // FUSED_INV_RESIDUAL_KERNELS
+
+// the bf16 instances, unit by unit: project width bnp per warpgroup
+constexpr int kUnitBnp[8] = {16, 24, 32, 64, 96, 128, 160, 256};
+
+#if FUSED_INV_RESIDUAL_PART < 8
+template cudaError_t tc_launch<kUnitBnp[FUSED_INV_RESIDUAL_PART]>(const InvResArgs& p,
+                                                                  size_t smem,
+                                                                  cudaStream_t stream);
+template cudaError_t tc_occupancy<kUnitBnp[FUSED_INV_RESIDUAL_PART]>(int smem, int* blocks);
+#endif
+
+#if FUSED_INV_RESIDUAL_PART == 8
+cudaError_t f32_launch(const InvResArgs& p, size_t smem, cudaStream_t stream) {
+  return launch(inv_residual_kernel<float>, p, smem, stream);
+}
+
+cudaError_t f32_occupancy(int smem, int* blocks) {
+  return occupancy(inv_residual_kernel<float>, smem, blocks);
+}
+#endif
+
+#if FUSED_INV_RESIDUAL_ENTRY
+// f(bnp) with the bf16 instance's template argument as a type
+// (std::integral_constant), for project width bnp per warpgroup
+template <typename F>
+cudaError_t with_tc(int bnp, F f) {
+  using std::integral_constant;
+  switch (bnp) {
+    case 16: return f(integral_constant<int, 16>{});
+    case 24: return f(integral_constant<int, 24>{});
+    case 32: return f(integral_constant<int, 32>{});
+    case 64: return f(integral_constant<int, 64>{});
+    case 96: return f(integral_constant<int, 96>{});
+    case 128: return f(integral_constant<int, 128>{});
+    case 160: return f(integral_constant<int, 160>{});
+    default: return f(integral_constant<int, 256>{});
+  }
+}
+#endif  // FUSED_INV_RESIDUAL_ENTRY
+
+}  // namespace invres
+
+#if FUSED_INV_RESIDUAL_ENTRY
+using namespace invres;
 
 // Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
 // for arguments the kernel does not take. elem_size: 4 (float32) or 2 (bf16);
@@ -449,9 +512,11 @@ extern "C" int fused_inv_residual(const void* x, const void* w_exp, const void* 
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_size) {
-    case 4: return (int)launch(inv_residual_kernel<float>, p, smem, s);
+    case 4: return (int)f32_launch(p, smem, s);
     case 2:
-      return (int)with_tc_kernel(bnp_of(cout, ns), [&](auto k) { return launch(k, p, smem, s); });
+      return (int)with_tc(bnp_of(cout, ns), [&](auto bnp) {
+        return tc_launch<decltype(bnp)::value>(p, smem, s);
+      });
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -461,8 +526,10 @@ extern "C" int fused_inv_residual(const void* x, const void* w_exp, const void* 
 extern "C" int fused_inv_residual_blocks_per_sm(int cout, int ns, int elem_size, int smem) {
   int blocks = 0;
   cudaError_t err =
-      elem_size == 4
-          ? occupancy(inv_residual_kernel<float>, smem, &blocks)
-          : with_tc_kernel(bnp_of(cout, ns), [&](auto k) { return occupancy(k, smem, &blocks); });
+      elem_size == 4 ? f32_occupancy(smem, &blocks)
+                     : with_tc(bnp_of(cout, ns), [&](auto bnp) {
+                         return tc_occupancy<decltype(bnp)::value>(smem, &blocks);
+                       });
   return err == cudaSuccess ? blocks : 0;
 }
+#endif  // FUSED_INV_RESIDUAL_ENTRY

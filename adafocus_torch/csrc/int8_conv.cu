@@ -84,7 +84,21 @@
 
 #include "fused_gemm.cuh"
 
-namespace {
+// The build compiles this file as twelve units at once, INT8_CONV_PART = 0
+// to 11 (ops/_kernels.py PARTS), and links them into one library: unit
+// p < 8 holds the GEMM instance conv_kernel<32 (p % 4 + 1), p / 4 + 1>,
+// units 8 to 10 the depthwise instances of the slab 16 << (p - 8), unit 11
+// the entry points at the end, which call the instances' launchers across
+// the units.
+#if INT8_CONV_PART == 11
+#define INT8_CONV_KERNELS 0   // this unit defines no launcher
+#define INT8_CONV_ENTRY 1     // this unit defines the entry points
+#else
+#define INT8_CONV_KERNELS 1
+#define INT8_CONV_ENTRY 0
+#endif
+
+namespace int8k {
 
 namespace tc = fused::tc;
 using bf16 = __nv_bfloat16;
@@ -539,7 +553,8 @@ __device__ __forceinline__ long long tap_offset(const ConvArgs& a, const Row& r,
 }
 
 // 16 codes at depths k..k+15 of a row, gathered
-__device__ __noinline__ int4 gather16(const ConvArgs& a, const Row& r, int k, float xs) {
+static __device__ __noinline__ int4 gather16(const ConvArgs& a, const Row& r, int k,
+                                              float xs) {
   if (a.cin % 16 == 0) {  // the 16 depths lie in one tap
     const long long i = tap_offset(a, r, k);
     return i < 0 ? make_int4(0, 0, 0, 0) : codes16(a.x, a.in_kind, i, 16, xs);
@@ -756,6 +771,7 @@ conv_kernel(const __grid_constant__ ConvArgs a) {
   }
 }
 
+#if INT8_CONV_ENTRY
 // split K's second pass: each thread one row's 16 channels, the slices'
 // partial sums added in slice order, then the epilogue
 __global__ void __launch_bounds__(256)
@@ -785,7 +801,12 @@ splitk_finish(const int* __restrict__ ws, int splits, long long m, int cout_pad,
                       rlo);
   }
 }
+#endif  // INT8_CONV_ENTRY
 
+template <int BN, int NC>
+cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream);
+
+#if INT8_CONV_KERNELS
 template <int BN, int NC>
 cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   constexpr int BM = 64 * NC;
@@ -797,7 +818,14 @@ cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
   conv_kernel<BN, NC><<<grid, 128 * (NC + 1), smem, stream>>>(a);
   return cudaGetLastError();
 }
+#endif  // INT8_CONV_KERNELS
 
+#if INT8_CONV_PART < 8
+template cudaError_t launch_conv<32 * (INT8_CONV_PART % 4 + 1), INT8_CONV_PART / 4 + 1>(
+    const ConvArgs& a, cudaStream_t stream);
+#endif
+
+#if INT8_CONV_ENTRY
 template <int NC>
 cudaError_t launch_conv_bn(int bn, const ConvArgs& a, cudaStream_t stream) {
   switch (bn) {
@@ -808,6 +836,7 @@ cudaError_t launch_conv_bn(int bn, const ConvArgs& a, cudaStream_t stream) {
     default: return cudaErrorInvalidValue;
   }
 }
+#endif  // INT8_CONV_ENTRY
 
 // ---------------------------------------------------------------------------
 // int8_dwconv: shared-memory tiles on the CUDA cores.
@@ -954,6 +983,10 @@ int dw_smem(const DwArgs& a) {
 }
 
 template <int CS>
+cudaError_t launch_dw(DwArgs a, cudaStream_t stream);
+
+#if INT8_CONV_KERNELS
+template <int CS>
 cudaError_t launch_dw(DwArgs a, cudaStream_t stream) {
   // rows a tile: about 16 pixel-words a thread, within the shared-memory budget
   int th = 4096 / (a.wo * (CS / 4));
@@ -976,8 +1009,16 @@ cudaError_t launch_dw(DwArgs a, cudaStream_t stream) {
   kernel<<<grid, 256, smem, stream>>>(a);
   return cudaGetLastError();
 }
+#endif  // INT8_CONV_KERNELS
 
-}  // namespace
+#if INT8_CONV_PART >= 8 && INT8_CONV_PART < 11
+template cudaError_t launch_dw<(16 << (INT8_CONV_PART - 8))>(DwArgs a, cudaStream_t stream);
+#endif
+
+}  // namespace int8k
+
+#if INT8_CONV_ENTRY
+using namespace int8k;
 
 // int8_conv. x (N, H, W, Cin): int8 codes (in_kind 0) or float32 / bf16 (1 /
 // 2) quantized on load at *x_scale; w the packed weight (Cout_pad / bn, ksteps)
@@ -1080,3 +1121,4 @@ extern "C" int int8_dwconv(const void* x, const void* x_scale, const void* w9,
   return (int)(cs == 64 ? launch_dw<64>(a, s) : cs == 32 ? launch_dw<32>(a, s)
                                                          : launch_dw<16>(a, s));
 }
+#endif  // INT8_CONV_ENTRY

@@ -6,7 +6,9 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 library's file name carries a hash of its source and of the shared headers
 (``csrc/*.cuh``), so an edited source is rebuilt and a stale library is
 never loaded. Nothing here includes PyTorch's headers, which keeps a build
-to seconds.
+to seconds. A source of ``PARTS`` is compiled as several units at once,
+each with its part's macro set, and the units are linked into its library:
+its kernel instances then build in parallel.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -28,6 +31,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# a source compiled as units: {name: (the macro that selects the unit, units)};
+# each source says which instances each unit holds
+PARTS = {"int8_conv": ("INT8_CONV_PART", 12),
+         "fused_bottleneck": ("FUSED_BOTTLENECK_PART", 10),
+         "fused_inv_residual": ("FUSED_INV_RESIDUAL_PART", 10)}
 
 _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library's functions: {function name: argtypes}; every function
@@ -67,6 +75,8 @@ SIGNATURES = {
 _loaded: Dict[str, ctypes.CDLL] = {}
 # per-kernel nvcc output (``-Xptxas -v``: registers, shared memory, spills)
 build_logs: Dict[str, str] = {}
+# per-kernel wall seconds of the last build, from the start of the build
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -84,9 +94,24 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _commands(nvcc: str, name: str, out: str) -> tuple:
+    """(the compile commands of ``name``, run at once, each with the object
+    it writes or None; the link command after them, or None)."""
+    src = str(CSRC / f"{name}.cu")
+    if name not in PARTS:
+        return [([nvcc, *NVCC_FLAGS, "-o", out, src], None)], None
+    macro, units = PARTS[name]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{out}.{p}.o" for p in range(units)]
+    compiles = [([nvcc, *flags, f"-D{macro}={p}", "-c", "-o", obj, src], obj)
+                for p, obj in enumerate(objs)]
+    return compiles, [nvcc, *NVCC_FLAGS, "-o", out, *objs]
+
+
 def build(names: Optional[Iterable[str]] = None) -> float:
-    """Compile the named kernels (default: all) that are not built yet, one
-    ``nvcc`` per source, all started together. Returns the wall seconds."""
+    """Compile the named kernels (default: all) that are not built yet: every
+    ``nvcc`` of every source (one, or one a unit of ``PARTS``) started
+    together. Returns the wall seconds."""
     names = list(SIGNATURES if names is None else names)
     start = time.perf_counter()
     todo = [n for n in names if not library_path(n).exists()]
@@ -94,22 +119,48 @@ def build(names: Optional[Iterable[str]] = None) -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
+    jobs = []
     for name in todo:
         # build into a private temp name, then rename: a concurrent build
         # never loads a half-written library
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        compiles, link = _commands(nvcc, name, tmp)
+        # each compiler's output into a file: no pipe fills while another is read
+        procs = []
+        for cmd, obj in compiles:
+            log = tempfile.TemporaryFile("w+", dir=BUILD_DIR)
+            procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                           text=True), log, obj))
+        jobs.append((name, tmp, procs, link))
+
+    def finish(job):
+        name, tmp, procs, link = job
+        logs, rc = [], 0
+        for proc, log, obj in procs:
+            rc = proc.wait() or rc
+            log.seek(0)
+            logs.append(log.read())
+            log.close()
+        if rc == 0 and link is not None:
+            linked = subprocess.run(link, capture_output=True, text=True)
+            logs.append(linked.stdout + linked.stderr)
+            rc = linked.returncode
+        for _, _, obj in procs:
+            if obj is not None and os.path.exists(obj):
+                os.unlink(obj)
+        return name, tmp, rc, "".join(logs), time.perf_counter() - start
+
+    with ThreadPoolExecutor(len(jobs)) as pool:   # each library's end, as it comes
+        done = list(pool.map(finish, jobs))
     failed = []
-    for name, tmp, proc in procs:
-        out, _ = proc.communicate()
+    for name, tmp, rc, out, seconds in done:
         build_logs[name] = out
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+        build_seconds[name] = seconds
+        if rc != 0:
+            if os.path.exists(tmp):   # a failed link removes its output
+                os.unlink(tmp)
+            failed.append(f"{name} (nvcc exit {rc}):\n{out}")
         else:
             os.replace(tmp, library_path(name))
     if failed:

@@ -9,7 +9,14 @@
     device's time by kernel name (kernels, copies and memsets; the host's
     lanes are skipped);
   * ``load_trace`` / ``device_events``: the port's one trace reader, which
-    ``port_patch_times.split_phases`` and ``chip_smoke.py`` read through.
+    ``port_patch_times.split_phases`` and ``chip_smoke.py`` read through;
+  * ``events_ms`` / ``device_ms`` (``device_profile``) / ``host_bound``: a
+    call's time two ways,
+    by CUDA events around back-to-back calls (what a caller waits, the
+    host's dispatch included where it is slower than the device) and by the
+    device's own spans in a profile of the same calls; a row whose events
+    exceed its device time by more than ``HOST_BOUND_RATIO`` is bound by the
+    host.
 """
 
 from __future__ import annotations
@@ -20,24 +27,35 @@ import gzip
 import json
 import os
 import socket
+import tempfile
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, List, Optional, Tuple
+from collections import Counter, defaultdict
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 # the trace's categories of work on the device
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# a call is host-bound where its CUDA events exceed its device time by more
+HOST_BOUND_RATIO = 1.5
+# seconds a capture stays open before the device starts and after it is
+# done: the profiler keeps only the device's spans inside its capture window,
+# and the device's timestamps can stray milliseconds from the host's clock,
+# ahead or behind (seen on an H100, more in a long-lived process), so
+# without it the first or the last spans, or all of them, go missing
+SETTLE_S = 0.015
 
 
 @contextlib.contextmanager
-def trace(log_dir: str, name: Optional[str] = None) -> Iterator[profile]:
+def trace(log_dir: str, name: Optional[str] = None,
+          settle: float = SETTLE_S) -> Iterator[profile]:
     """Capture a profile of the enclosed steps; yields the profiler. The
     device is synchronised before the capture ends, so the enclosed
-    kernels are in it. The trace goes to ``log_dir/name`` (default
-    ``<host>_<pid>.<ns>.pt.trace.json``, which ``op_breakdown(log_dir)``
-    finds)."""
+    kernels are in it, and the capture stays open ``settle`` seconds on
+    each side of them (``SETTLE_S``). The trace goes to ``log_dir/name``
+    (default ``<host>_<pid>.<ns>.pt.trace.json``, which
+    ``op_breakdown(log_dir)`` finds)."""
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     name = name or f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}.pt.trace.json"
@@ -45,11 +63,14 @@ def trace(log_dir: str, name: Optional[str] = None) -> Iterator[profile]:
     if cuda:
         torch.cuda.synchronize()   # work enqueued before the capture stays out of it
     with profile(activities=activities) as prof:
+        if cuda:
+            time.sleep(settle)
         try:
             yield prof
         finally:
             if cuda:
                 torch.cuda.synchronize()
+                time.sleep(settle)
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
@@ -181,3 +202,114 @@ def top_ops(
     rows = [(k, ms, cnt) for k, (ms, cnt) in raw.items()]
     rows.sort(key=lambda r: -r[1])
     return rows[:n]
+
+
+# ---------------------------------------------------------------------------
+# A call's time: CUDA events against the device's own spans.
+# ---------------------------------------------------------------------------
+
+
+def events_ms(fn: Callable[[], object], iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of one call of ``fn`` in ms, from CUDA events around
+    ``iters`` back-to-back calls after ``warmup`` ones. Where the host
+    dispatches a call more slowly than the device runs it, this is the
+    host's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def per_call_ms(events: List[dict], calls: int,
+                reference: Optional[List[dict]] = None) -> Optional[float]:
+    """The device's time of one call in ms: the durations of the kernels,
+    copies and memsets among a trace's ``events`` (``device_events``),
+    summed, over ``calls``. None where the trace holds no device work, or
+    work that ``calls`` calls cannot have made alike: spans went missing.
+    Each name's count must then be a multiple of ``calls`` and, given the
+    ``reference`` events of a one-call profile, ``calls`` times that name's
+    count there (so a call whose spans share a name that lost whole calls is
+    refused too)."""
+    spans = device_events(events)
+    counts = Counter(e.get("name") for e in spans)
+    if not spans or any(n % calls for n in counts.values()):
+        return None
+    if reference is not None:
+        one = Counter(e.get("name") for e in device_events(reference))
+        if counts != Counter({k: n * calls for k, n in one.items()}):
+            return None
+    return sum(e.get("dur", 0) for e in spans) / 1e3 / calls
+
+
+def as_trace_events(events) -> List[dict]:
+    """A live profile's events (``prof.events()``) in a trace's form
+    (``load_trace``): the device's as kernels, copies and memsets, the
+    host's as operators."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in events:
+        cat = "cpu_op"
+        if e.device_type == DeviceType.CUDA:
+            cat = ("gpu_memcpy" if e.name.startswith("Memcpy") else
+                   "gpu_memset" if e.name.startswith("Memset") else "kernel")
+        out.append({"ph": "X", "cat": cat, "name": e.name, "ts": e.time_range.start,
+                    "dur": e.time_range.elapsed_us()})
+    return out
+
+
+def device_profile(fn: Callable[[], object], iters: int = 20, settle: float = SETTLE_S,
+                   written: bool = False) -> List[dict]:
+    """The events of a profile of ``iters`` calls of ``fn`` after one
+    warm-up call, the capture kept open ``settle`` seconds before the first
+    call and after the device is done (``SETTLE_S``): the device's activity
+    alone, read from the live profile (``as_trace_events``), or with
+    ``written`` the host's too, read from the trace ``trace`` writes (on the
+    CPU, the host's). Late in a long-lived process the profiler loses some
+    of the device's spans, and not the same ones both ways."""
+    cuda = torch.cuda.is_available()
+    fn()
+    if written:
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp, "calls.json", settle):
+                for _ in range(iters):
+                    fn()
+            return load_trace(os.path.join(tmp, "calls.json"))
+    if cuda:
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        if cuda:
+            time.sleep(settle)
+        for _ in range(iters):
+            fn()
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(settle)
+    return as_trace_events(prof.events())
+
+
+def device_ms(fn: Callable[[], object], iters: int = 20,
+              settle: float = SETTLE_S) -> Optional[float]:
+    """Mean device time of one call of ``fn`` in ms: ``per_call_ms`` of a
+    ``device_profile`` of ``iters`` calls, held to one of a single call. The
+    gaps between the device's spans, where it waits for the host, are left
+    out. None where the profiler saw no device work (on the CPU) or not every
+    call's."""
+    reference = device_profile(fn, 1, settle)
+    return per_call_ms(device_profile(fn, iters, settle), iters, reference)
+
+
+def host_bound(events: float, device: Optional[float]) -> Optional[bool]:
+    """Whether a call timed ``events`` ms by CUDA events and ``device`` ms by
+    the profiler is bound by the host: its events exceed its device time by
+    more than ``HOST_BOUND_RATIO``. None where the device time is unknown."""
+    if device is None:
+        return None
+    return events > HOST_BOUND_RATIO * device

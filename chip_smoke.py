@@ -7,10 +7,12 @@ Phases, each raising on failure:
 
   1. the card: exits non-zero when no CUDA device is visible; prints the
      card's name and power limit (nvidia-smi);
-  2. builds every CUDA kernel of the port from ``adafocus_torch/csrc``,
-     prints each kernel's registers and spills (``-Xptxas -v``) and, from
-     ``cuobjdump -sass``, the tensor-core instructions (HGMMA = wgmma, HMMA
-     and IMMA = mma.sync) of each fused-block and int8 kernel instance;
+  2. builds every CUDA kernel of the port from ``adafocus_torch/csrc``
+     (every nvcc at once, ``int8_conv.cu`` as twelve units; each library's
+     seconds), prints each kernel's registers and spills (``-Xptxas -v``)
+     and, from ``cuobjdump -sass`` (the three dumps at once), the
+     tensor-core instructions (HGMMA = wgmma, HMMA and IMMA = mma.sync) of
+     each fused-block and int8 kernel instance;
      raises if a bf16 instance has no tensor-core instruction, or if an
      instance of the int8 GEMM kernel has no HGMMA or any mma.sync;
   3. holds each kernel against its plain PyTorch version on the card at the
@@ -23,11 +25,14 @@ Phases, each raising on failure:
      every distinct block shape of the matched sth-sth configuration in its
      temporal-shift split, ``use_res=False``, at N=4 in float32 and bf16
      and in bf16 at N=512 glance frames and N=768 patches), and times
-     kernel, plain version and a library yardstick with CUDA events (patch
-     extraction at the four shapes of ``port_patch_times.SHAPES``, beside a
-     strided and a contiguous ``copy_`` of the same bytes, also by the
-     profiler's kernel durations; the blocks beside cuDNN's block, or its
-     branch in the TSM split);
+     kernel, plain version and a library yardstick (patch extraction at the
+     four shapes of ``port_patch_times.SHAPES``, beside a strided and a
+     contiguous ``copy_`` of the same bytes; the blocks beside cuDNN's
+     block, or its branch in the TSM split): the kernel and the yardstick
+     by CUDA events around back-to-back calls and by the profiler's device
+     spans (``device_ms``; every share of a bound and every rate from
+     those), a row whose events exceed its device time by more than 1.5x
+     marked ``host_bound``; the plain version by events;
   4. drives the flagship deployment forward (``models.gfv.inference``, bf16,
      B=2, T=16, full depth and width, weights from a seeded generator) on
      both backbone paths, library convs (``fused="auto"``) and fused blocks
@@ -139,7 +144,8 @@ Phases, each raising on failure:
      policy, extraction, focus, scatter, classify), peak memory, and at
      N=512 the frame gather beside the patch kernel on the gathered frames
      (each beside its byte bound; the plain version, ``copy_`` and
-     ``index_select`` yardsticks); the ST stage-1 and the joint stage-2
+     ``index_select`` yardsticks; each but the plain version also by its
+     device time); the ST stage-1 and the joint stage-2
      step (``plus_rl``, reward 'random') at B=64, two warm-up and five
      timed steps (videos/s, phase split, peak memory, exactly 1 and 2 patch
      launches a step, every ratio_mean within 1e-3 of 1, frozen components
@@ -164,9 +170,10 @@ Phases, each raising on failure:
      outputs bit-identical but for counted double roundings, codes equal
      but at those outputs (each within 1); each shape timed as the forward
      launches it at N=1024 (the B=64 forward's frames and patches) and N=64
-     (the matched focuser at N=64, the heads at their M) beside the plain
-     version and the yardstick (``torch._int_mm`` where it takes the
-     product, else cuDNN's or cuBLAS's bf16 op) with its bound (the bytes
+     (the matched focuser at N=64, the heads at their M), by events and by
+     its device time, beside the plain version and the yardstick
+     (``torch._int_mm`` where it takes the product, else cuDNN's or
+     cuBLAS's bf16 op; also by its device time) with its bound (the bytes
      each fused unit reads and writes). Each int8 backbone of the flagship
      and of the matched configuration (TSM) fused against the unfused
      composition (``quantize_act`` before every unit, the residual added
@@ -188,11 +195,14 @@ Phases, each raising on failure:
  13. export (``adafocus_torch.serving``), this slice's main path: the
      flagship, the matched configuration and ``plus_cfg((96, 8))`` in bf16
      and the flagship in int8 (phase 12's scales), each exported with
-     ``torch.export`` at B=64 (export s), saved (save s, MB), its eager
-     logits and videos/s taken; then one fresh process that imports
-     ``adafocus_torch.serving`` (and the ops modules its loader imports)
-     reloads each (load s), holds every state tensor on the card, runs one
-     forward with the launch counts set to 0 just before (exactly 1 patch
+     ``torch.export`` at B=64 (export s; two exporting processes at once,
+     two cases each), saved (save s, MB), its eager logits taken; one fresh
+     process that imports ``adafocus_torch.serving``
+     (and the ops modules its loader imports), started with the phase,
+     reloads each as it is saved (load s), holds every state tensor on the
+     card; when all four are loaded, each eager forward's videos/s, then in
+     the fresh process for each artifact one forward with the launch counts
+     set to 0 just before (exactly 1 patch
      launch; int8 also 86 ``int8_conv`` and 17 ``int8_dwconv``; no fused
      block) and times it (3 runs of 10 forwards), and has imported no
      ``adafocus_torch.models`` module and no JAX; each artifact's logits
@@ -217,7 +227,8 @@ Phases, each raising on failure:
      (phase 6's float32 limits: the whole-batch step normalises
      differently), stage 2's against one plain step on the whole B=16
      batch (phase 7's). (c) ``python -m adafocus_torch.parallel.dryrun
-     --ranks 1`` and its seconds.
+     --ranks 1`` and its seconds, in a process that runs beside (b): it
+     times nothing.
  15. the tooling (``utils.torch_weights``, ``utils.profiling``,
      ``ops.flops``, the ResNet variants), this slice's main path. (a) A
      torchvision-layout ResNet-50 and MobileNetV2 (tests/torch_ref_models.py,
@@ -247,6 +258,10 @@ Phases, each raising on failure:
      64 patches of 96^2 in bf16 against float32 (TF32 off), 3e-2, and each
      one's bf16 ms.
 
+The untimed checks (the steps in three precisions, the small stages, the
+B=2 forwards) run with cuDNN's autotuner off. Each phase's end prints its
+seconds and those of each call in it.
+
 Prints the per-shape tables of the patch kernel and of the fused blocks
 (with each shape's plan, TFLOP/s, waves at N=1024 and tensor-core
 instruction), the profile, the stage-1 and stage-2 timings, the matched
@@ -254,7 +269,11 @@ configuration's results, the bench, the CLI's results, phase 10's,
 phase 11's, phase 12's, phase 13's, phase 14's and phase 15's results and the kernel
 table (each kernel's launches on every path, its times at the flagship's and
 the matched configuration's shapes; the int8 kernels' at phase 12's unit
-shapes) as JSON lines, then as its last line
+shapes) as JSON lines: the calls' seconds, the card's name and power limit,
+the run's and each phase's seconds (``{"seconds": ...}``), the kernel table
+(``{"kernels": ...}``; each row and sub-row with ``ms`` and ``device_ms``,
+``library_ms`` and ``library_device_ms``, ``host_bound`` and
+``library_host_bound``), then as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -263,6 +282,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -292,30 +312,97 @@ MATCHED_B = 64              # the matched configuration's batch (bench.py's, the
 N4_ROUNDS = 2               # rounds of fresh inputs for the N=4 block checks
 
 
-def tensor_core_instructions() -> dict:
-    """Phase 2: {kernel instance: {"HGMMA": n, "HMMA": n, "IMMA": n}} of the
-    fused-block and int8 libraries, counted in ``cuobjdump -sass``. Raises if
-    a bf16 instance (``*_tc_kernel``) has no tensor-core instruction, if a
-    CUDA-core kernel was instantiated for bf16, or if an instance of the
-    int8 GEMM kernel (``conv_kernel``) issues no wgmma (HGMMA) or any
-    mma.sync (IMMA, HMMA)."""
+# device timings taken (``_times``): how many, the profiles they took beyond
+# one each (a profile that missed device work is taken again), and their
+# host seconds
+PROFILED = {"calls": 0, "retakes": 0, "seconds": 0.0}
+# host seconds of each call of a ``_seconds`` function, in the order the
+# calls ended (an inner call before the call around it); printed at the end
+CALL_SECONDS = []
+
+
+def _seconds(fn):
+    """``fn``, its host seconds of each call appended to CALL_SECONDS."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            CALL_SECONDS.append([fn.__name__, time.perf_counter() - t0])
+    return timed
+
+
+@contextlib.contextmanager
+def _autotuner(on: bool):
+    """cuDNN's autotuner on or off within the context (or the decorated
+    function), as it was after. The untimed checks run with it off: its
+    search at each new shape is what they would otherwise spend most of
+    their time on, and which algorithm a check runs its tolerance covers."""
+    import torch
+
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
+# the libraries whose SASS phase 2 reads
+SASS_LIBS = ("fused_inv_residual", "fused_bottleneck", "int8_conv")
+
+
+@_seconds
+def build_kernels() -> tuple:
+    """Phase 2's build: each kernel library built in a thread of its own
+    (``_kernels.build``), so that every nvcc runs at once, and the SASS of
+    each of SASS_LIBS dumped (``cuobjdump -sass``) as soon as it is built,
+    beside the builds still running. Returns (the wall seconds, {library:
+    SASS})."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from adafocus_torch.ops import _kernels
 
     tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
-    counts, name = {}, None
-    for lib in ("fused_inv_residual", "fused_bottleneck", "int8_conv"):
-        sass = subprocess.run([tool, "-sass", str(_kernels.library_path(lib))],
+
+    def build(lib):
+        _kernels.build([lib])
+        if lib not in SASS_LIBS:
+            return None
+        return subprocess.run([tool, "-sass", str(_kernels.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
+
+    start = time.perf_counter()
+    libs = list(_kernels.SIGNATURES)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        dumps = dict(zip(libs, pool.map(build, libs)))
+    return time.perf_counter() - start, {k: v for k, v in dumps.items() if v is not None}
+
+
+@_seconds
+def tensor_core_instructions(dumps: dict) -> dict:
+    """Phase 2: {kernel instance: {"HGMMA": n, "HMMA": n, "IMMA": n}} of the
+    fused-block and int8 libraries, counted in their ``cuobjdump -sass``
+    (``dumps``: {library: SASS}). Raises if a bf16 instance
+    (``*_tc_kernel``) has no tensor-core instruction, if a CUDA-core kernel
+    was instantiated for bf16, or if an instance of the int8 GEMM kernel
+    (``conv_kernel``) issues no wgmma (HGMMA) or any mma.sync (IMMA,
+    HMMA)."""
+    counts, int8 = {}, set()
+    for lib, sass in dumps.items():
+        name = None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 name = m.group(1)
                 counts[name] = {"HGMMA": 0, "HMMA": 0, "IMMA": 0}
+                if lib == "int8_conv" and "conv_kernel" in name:
+                    int8.add(name)
             elif name is not None:
                 for op in re.findall(r"\b(HGMMA|HMMA|IMMA)\.", line):
                     counts[name][op] += 1
     tc = {k: v for k, v in counts.items() if "tc_kernel" in k}
-    int8 = {k: v for k, v in counts.items() if "int8_conv" in k and "conv_kernel" in k}
     if len(tc) < 2 or not int8:
         raise AssertionError(f"no tensor-core kernel instance in the SASS: {sorted(counts)}")
     for k, v in counts.items():
@@ -350,21 +437,46 @@ def _blocks_per_sm(kernel: str, key, plan) -> int:
         chid, plan.ns, plan.wide, 2, plan.smem)
 
 
-def _time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events around ``iters`` calls."""
-    import torch
+def _times(fn, iters: int, warmup: int) -> tuple:
+    """(events ms, device ms) of one call of ``fn``: CUDA events around
+    ``iters`` calls after ``warmup`` ones, then the profiler's device spans
+    over ``iters`` more (``port_patch_times.measured_device_ms``)."""
+    from adafocus_torch.utils.profiling import events_ms
+    from port_patch_times import measured_device_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = events_ms(fn, iters, warmup)
+    t0 = time.perf_counter()
+    dev, profiles = measured_device_ms(fn, iters)
+    PROFILED["calls"] += 1
+    PROFILED["retakes"] += profiles - 1
+    PROFILED["seconds"] += time.perf_counter() - t0
+    return ms, dev
+
+
+def _row_times(kernel, library, iters: int, warmup: int) -> dict:
+    """A table row's times: the kernel's and its library yardstick's
+    (``_times``), each flagged host-bound by the 1.5x rule
+    (``profiling.host_bound``)."""
+    from adafocus_torch.utils.profiling import host_bound
+
+    ms, dev = _times(kernel, iters, warmup)
+    lib_ms, lib_dev = _times(library, iters, warmup)
+    return {"ms": ms, "device_ms": dev, "host_bound": host_bound(ms, dev),
+            "library_ms": lib_ms, "library_device_ms": lib_dev,
+            "library_host_bound": host_bound(lib_ms, lib_dev)}
+
+
+def _summed_times(parts: list) -> dict:
+    """A summed row's times: each of ``_row_times``' times over the (weight,
+    row) pairs of ``parts``, weighted, and the host-bound flags of the
+    sums."""
+    from adafocus_torch.utils.profiling import host_bound
+
+    t = {k: sum(w * r[k] for w, r in parts)
+         for k in ("ms", "device_ms", "library_ms", "library_device_ms")}
+    t["host_bound"] = host_bound(t["ms"], t["device_ms"])
+    t["library_host_bound"] = host_bound(t["library_ms"], t["library_device_ms"])
+    return t
 
 
 def _random_frames(shape, dtype, gen):
@@ -446,6 +558,7 @@ def check_patch_edges(device) -> None:
                 "from actions, 49 anchors + 0 + 1, offsets equal patch_offsets'")
 
 
+@_seconds
 def check_patch_kernel(device) -> tuple:
     """Phase 3 for ``extract_patches``: bit-identical to the plain version in
     bf16, f32 and int8 at the flagship shape and at odd shapes, at the edges
@@ -510,14 +623,24 @@ def check_patch_kernel(device) -> tuple:
         "source": "adafocus_torch/csrc/patch_extract.cu",
         "replaces": "adafocus_tpu/ops/patch.py:164",
         "max_abs_err": worst,
-        "ms": main["us"] / 1e3,
-        "plain_ms": main["plain_us"] / 1e3,
-        "bound_ms": main["bound_us"] / 1e3,
-        "bound_by": "bytes",
-        # one strided copy of the same bytes (one window for all N)
-        "library_ms": main["strided_copy_us"] / 1e3,
+        **_patch_times(main),
         "shape": f"{main['shape']}: N={main['n']} {main['frames']} P={main['p']} bf16",
     }, timed
+
+
+def _patch_times(row: dict) -> dict:
+    """The table's times of one ``port_patch_times.time_shapes`` row, in ms;
+    the library yardstick one strided copy of the same bytes (one window for
+    all N)."""
+    from adafocus_torch.utils.profiling import host_bound
+
+    return {"ms": row["us"] / 1e3, "device_ms": row["dev_us"] / 1e3,
+            "host_bound": row["host_bound"], "plain_ms": row["plain_us"] / 1e3,
+            "bound_ms": row["bound_us"] / 1e3, "bound_by": "bytes",
+            "library_ms": row["strided_copy_us"] / 1e3,
+            "library_device_ms": row["strided_copy_dev_us"] / 1e3,
+            "library_host_bound": host_bound(row["strided_copy_us"],
+                                             row["strided_copy_dev_us"])}
 
 
 def _block_shapes(model) -> dict:
@@ -629,6 +752,7 @@ def _block_cost(kernel: str, key, n: int) -> tuple:
     return 2 * (px * cin + po * cout) + weights, 2 * macs
 
 
+@_seconds
 def check_fused_blocks(model16, device, sass: dict) -> tuple:
     """Phase 3 for the two fused-block kernels: each against its plain
     version at every distinct flagship block shape (N=4, float32 and bf16,
@@ -702,6 +826,7 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
     import torch
 
     from adafocus_torch.ops.fused_blocks import out_size, plan_bottleneck, plan_inv_residual
+    from adafocus_torch.utils.profiling import events_ms
 
     per_shape = []
     for kernel, entries in shapes.items():
@@ -725,9 +850,9 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
             x_nchw = x.permute(0, 3, 1, 2)
             library = _library_block(kernel, module, tsm)
             with torch.inference_mode():
-                ms = _time_ms(lambda: run(x, params, **args), iters=10, warmup=2)
-                plain_ms = _time_ms(lambda: plain(x, params, **args), iters=5, warmup=1)
-                library_ms = _time_ms(lambda: library(x_nchw), iters=10, warmup=2)
+                times = _row_times(lambda: run(x, params, **args), lambda: library(x_nchw),
+                                   iters=10, warmup=2)
+                plain_ms = events_ms(lambda: plain(x, params, **args), iters=5, warmup=1)
             moved, flops = _block_cost(kernel, key, n)
             bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
             plan = plan_fn(h, h, cin, chid, cout, stride, flag, 2, n)
@@ -742,17 +867,19 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
                    "plan": plan._asdict(), "blocks": blocks, "blocks_per_sm": occ,
                    "waves": -(-blocks // (SM_COUNT * occ)) if occ else None,
                    "instr": "HGMMA" if ops["HGMMA"] else "HMMA",
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   **times, "plain_ms": plain_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                   "tflops": flops / ms / 1e9,
+                   "tflops": flops / times["device_ms"] / 1e9,
                    "bytes": moved, "flops": flops, "max_rel_err": rel}
             per_shape.append(row)
             print(f"{kernel} {row['block']} x{e['launches']} N={n} bf16 {row['shape']} "
-                  f"use_res={args['use_res']}: kernel {ms!r} ms ({row['tflops']!r} TFLOP/s, "
+                  f"use_res={args['use_res']}: kernel {times['ms']!r} ms "
+                  f"({times['device_ms']!r} on the device, {row['tflops']!r} TFLOP/s, "
                   f"{row['instr']}, plan {tuple(plan)}, {blocks} blocks, {occ}/SM, "
                   f"{row['waves']} waves), plain {plain_ms!r} ms, library "
-                  f"{'branch' if tsm else 'block'} {library_ms!r} ms, bound "
+                  f"{'branch' if tsm else 'block'} {times['library_ms']!r} ms "
+                  f"({times['library_device_ms']!r} on the device), bound "
                   f"{row['bound_ms']!r} ms ({row['bound_by']}); max|d|/max|plain| {rel!r}",
                   flush=True)
             del x, x_nchw
@@ -761,15 +888,16 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
 
 
 def _kernel_rows(per_shape: list, worst: dict, shape: str) -> list:
-    """The two block kernels' table rows: each shape's times, library time
-    and bound times its launches a forward, summed."""
+    """The two block kernels' table rows: each shape's times (events and
+    device), library times and bound times its launches a forward,
+    summed."""
     sources = {"fused_inverted_residual": ("fused_inv_residual.cu", 247),
                "fused_bottleneck": ("fused_bottleneck.cu", 397)}
     rows = []
     for kernel, (src, line) in sources.items():
         mine = [r for r in per_shape if r["kernel"] == kernel]
-        total = {k: sum(r["launches"] * r[k] for r in mine)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        total = _summed_times([(r["launches"], r) for r in mine])
+        total.update({k: sum(r["launches"] * r[k] for r in mine) for k in ("plain_ms", "bound_ms")})
         by_bytes = sum(r["launches"] * r["bound_ms"] for r in mine if r["bound_by"] == "bytes")
         rows.append({
             "name": kernel, "route": "cuda", "source": f"adafocus_torch/csrc/{src}",
@@ -781,6 +909,7 @@ def _kernel_rows(per_shape: list, worst: dict, shape: str) -> list:
     return rows
 
 
+@_seconds
 def check_matched_blocks(model_sth, device, sass: dict) -> tuple:
     """Phase 3 for the two block kernels in the temporal-shift split of the
     matched sth-sth configuration (224^2 glance, 144^2 patches): every
@@ -840,6 +969,7 @@ def _launch_counts(reset: bool = False) -> dict:
     return {name: fn.launches for name, fn in fns.items()}
 
 
+@_seconds
 def flagship_forward(model16, device) -> dict:
     """Phase 4: the main path once in bf16 on each backbone path, with
     launch counts; then, on the same weights and injected float32 greedy
@@ -914,6 +1044,7 @@ def flagship_forward(model16, device) -> dict:
     return {"launches": launches}
 
 
+@_seconds
 def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 10):
     """Phase 5: the bf16 flagship forward at B=64, T=16 on one backbone path.
     Returns (videos/s of three timed runs, mean device ms of each phase over
@@ -924,6 +1055,7 @@ def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 1
     from adafocus_torch.models.gfv import (
         extract_for_frames, fuse_and_classify, inference,
     )
+    from adafocus_torch.utils.profiling import events_ms
 
     torch.backends.cudnn.benchmark = True
     cfg = model16.cfg
@@ -933,9 +1065,9 @@ def flagship_throughput(model16, device, fused: str, b: int = 64, iters: int = 1
                          dtype=torch.bfloat16)
     small = torch.randn((b, t, g, g, 3), generator=gen, device=device,
                         dtype=torch.bfloat16)
-    vps = [b / (_time_ms(lambda: inference(model16, frames, small, device=device,
-                                           fused=fused),
-                         iters=iters, warmup=3) / 1e3) for _ in range(3)]
+    vps = [b / (events_ms(lambda: inference(model16, frames, small, device=device,
+                                            fused=fused),
+                          iters=iters, warmup=3) / 1e3) for _ in range(3)]
 
     on = fused == "on"
     glance = (lambda x: fused_glance(model16, x)) if on else model16.glance
@@ -1038,6 +1170,7 @@ def check_train_update(before: dict, model, stage: int, label: str, labels: dict
           f"(zero, with zero gradient, so unmoved: {still})", flush=True)
 
 
+@_seconds
 def check_patch_backward(device) -> None:
     """The patch Function's backward on the card (from offsets with starts
     that wrap and clamp, and from actions) against the plain version on the
@@ -1111,6 +1244,7 @@ def _timed_steps(step, batch, gen, device) -> dict:
             "peak_bytes": torch.cuda.max_memory_allocated(device)}
 
 
+@_seconds
 def train_stage1_timed(device, card: str) -> dict:
     """Phase 6, the main path: the stage-1 step on the bf16 flagship at
     B=64, TRAIN_WARMUP + TRAIN_TIMED steps with the launch counts set to 0
@@ -1152,6 +1286,8 @@ def train_stage1_timed(device, card: str) -> dict:
             "launches": launches, "losses": loss}
 
 
+@_seconds
+@_autotuner(False)
 def train_precisions(device) -> dict:
     """Phase 6: one stage-1 step of the flagship in bf16 compute, float32
     (TF32 off) and float64, each over float32-initialised parameters from
@@ -1219,6 +1355,8 @@ def train_precisions(device) -> dict:
             "bf16_vs_float32": {"loss_rel": rel16, "grad_cos": cos16, "grad_norm_ratio": norm16}}
 
 
+@_seconds
+@_autotuner(False)
 def train_small_stages(device) -> dict:
     """Phase 6: stages 0 and 3 (two steps each) and then the eval step on
     the bf16 flagship at B=TRAIN_SMALL_B, each with its launch counts set to
@@ -1326,6 +1464,7 @@ def profile_stage2(step, batch, gen, n_steps: int = 3) -> dict:
                         STAGE2_PHASES)
 
 
+@_seconds
 def train_stage2_timed(device, card: str) -> dict:
     """Phase 7, this slice's main path: the stage-2 step on the bf16
     flagship at B=64 (reward 'random'), TRAIN_WARMUP + TRAIN_TIMED steps
@@ -1377,6 +1516,8 @@ def train_stage2_timed(device, card: str) -> dict:
     return run
 
 
+@_seconds
+@_autotuner(False)
 def train_stage2_precisions(device) -> dict:
     """Phase 7: one stage-2 step of the flagship at B=TRAIN_COMPARE_B in bf16
     compute, float32 (TF32 off) and float64, over float32-initialised
@@ -1445,6 +1586,7 @@ def train_stage2_precisions(device) -> dict:
     return {"float32_vs_float64": f32, "bf16_vs_float32": bf16}
 
 
+@_seconds
 def check_sampler(device) -> dict:
     """Phase 7: SAMPLER_DRAWS draws of ``sample_discrete`` over the 49
     anchors from one row of fixed logits on a CUDA generator; every class's
@@ -1498,6 +1640,8 @@ def _matched_with_actions(model, frames, small, actions_div, fused: bool):
         return sum_consensus(glob, local, cfg.with_glancer)
 
 
+@_seconds
+@_autotuner(False)
 def matched_forward(model, device) -> dict:
     """Phase 8 at B=2: the main path once in bf16 on each backbone path,
     with launch counts (one patch launch a forward on the cuDNN path; 17 +
@@ -1576,6 +1720,7 @@ def matched_forward(model, device) -> dict:
     return {"launches": launches, "max_rel_err": rels}
 
 
+@_seconds
 def matched_throughput(model, device, fused: str, iters: int = 10) -> dict:
     """Phase 8 at B=64 on one backbone path: videos/s of three timed runs
     (``benchmark.inference_rates``), the mean device ms of each phase over
@@ -1649,6 +1794,7 @@ def _cli_args(tmp: str, *extra) -> list:
             "loader.cache=device", f"loader.batch_size={CLI_B}", *extra]
 
 
+@_seconds
 def _run_cli(main, args: list, log_path: str):
     """``main(args)`` with its log lines sent to ``log_path``; its tail is
     printed if it raises."""
@@ -1672,6 +1818,7 @@ def _same_as_checkpoint(model, tree: dict, components, label: str) -> None:
                 raise AssertionError(f"{label}: {comp}.{key} differs from the checkpoint")
 
 
+@_seconds
 def check_cli_prep(cfg, loader, device) -> dict:
     """The batch prep on the card against the CPU's on one uint8 batch of
     the device cache (4 videos) with the same draws, train and eval, float32
@@ -1713,6 +1860,7 @@ def _cli_batches(loader):
         yield from loader
 
 
+@_seconds
 def check_cli_patch(cfg, loader, model, device) -> None:
     """The patch kernel at the shape the CLI gives it (B=32 x T=16 = 512
     frames, 224^2 -> 96^2, bf16: a grid plan of its own), on one batch of
@@ -1738,6 +1886,7 @@ def check_cli_patch(cfg, loader, model, device) -> None:
     check_patch_at(frames, actions, s, p, f"{label}, the policy's greedy actions")
 
 
+@_seconds
 def time_cli_components(cfg, loader, state, device, card: str) -> dict:
     """Mean ms of the loader's gather (host clock to a synchronised batch),
     of the batch prep and of the stage-1 step (CUDA events), each over
@@ -1787,6 +1936,7 @@ def time_cli_components(cfg, loader, state, device, card: str) -> dict:
 CLI_PHASES = ("gather", "prep", "step")
 
 
+@_seconds
 def profile_cli_batches(cfg, loader, state, device, card: str) -> dict:
     """``torch.profiler`` over ``CLI_PASSES`` epochs of the stage-1 loop at
     B=32 from the device cache, in sequence, with the gather, the batch prep
@@ -1829,6 +1979,8 @@ def profile_cli_batches(cfg, loader, state, device, card: str) -> dict:
     return out
 
 
+@_seconds
+@_autotuner(False)   # the CLI keeps torch's default; phase 5 turned it on
 def cli_phase(device, card: str) -> dict:
     """Phase 9: the CLI's stages 1, 2 and 3 and evaluate at the flagship
     width, each with the launch counts set to 0 just before and read just
@@ -1851,10 +2003,6 @@ def cli_phase(device, card: str) -> dict:
 
     out = {"stages": {}, "evaluate": {}}
     n_val = -(-CLI_VIDEOS // CLI_B)
-    # the CLI keeps torch's default, cuDNN's autotuner off; phase 5 turned
-    # it on for this process
-    autotune = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "cli.log")
         prev = None
@@ -1931,7 +2079,6 @@ def cli_phase(device, card: str) -> dict:
         print(f"CLI evaluate bf16 B={CLI_B} of stage 3: " + "; ".join(
             f"{p} {json.dumps(v['results'])} ({v['launches']['extract_patches']} patch launches)"
             for p, v in out["evaluate"].items()) + f" ({card})", flush=True)
-    torch.backends.cudnn.benchmark = autotune
     return out
 
 
@@ -1993,6 +2140,7 @@ def _sthsth_step(state, stage):
     return make_sthsth_train_step(state.model, stage, state.optimizer, state.scheduler)
 
 
+@_seconds
 def sthsth_train_timed(device, card: str) -> dict:
     """Phase 10, the main path: each sth-sth stage's step at the matched
     configuration, B=STH_B, TRAIN_WARMUP + TRAIN_TIMED steps with the launch
@@ -2055,6 +2203,8 @@ def sthsth_train_timed(device, card: str) -> dict:
     return out
 
 
+@_seconds
+@_autotuner(False)
 def sthsth_discrete_ratio(device, card: str) -> dict:
     """Phase 10: STH_DISCRETE_STEPS stage-2 steps of the discrete
     BatchNorm-encoder policy over two video divisions at B=STH_DISCRETE_B:
@@ -2080,6 +2230,8 @@ def sthsth_discrete_ratio(device, card: str) -> dict:
     return {"ratio_mean": ratios, "launches": launches}
 
 
+@_seconds
+@_autotuner(False)
 def sthsth_precisions(device) -> dict:
     """Phase 10: one step of each sth-sth stage at B=STH_COMPARE_B in bf16
     compute, float32 (TF32 off) and float64, from the same float32 initial
@@ -2188,6 +2340,7 @@ def _normal_pdf(x: float) -> float:
     return math.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
 
 
+@_seconds
 def check_continuous_sampler(device) -> dict:
     """Phase 10: SAMPLER_DRAWS draws of ``sample_continuous`` (std 0.25)
     around each of STH_SAMPLER_MEANS on a CUDA generator: the shares clamped
@@ -2235,6 +2388,7 @@ def check_continuous_sampler(device) -> dict:
     return {"draws": n, "per_mean": out, "max_sigma": worst}
 
 
+@_seconds
 def check_sthsth_remat(device, card: str) -> dict:
     """Phase 10: one sth-sth stage-1 step at B=STH_B with ``remat`` on and
     off, float32 compute (TF32 off), the same initial weights, batch,
@@ -2304,6 +2458,7 @@ def _sthsth_cli_args(*extra) -> list:
             "loader.cache=device", f"loader.batch_size={STH_CLI_B}", *extra]
 
 
+@_seconds
 def sthsth_cli_phase(device, card: str) -> dict:
     """Phase 10: the CLI's run.family=sthsth (configs/sthsth_default.yaml,
     the recipe's discrete BatchNorm-encoder policy, TSN groups, bf16, B=
@@ -2374,24 +2529,19 @@ def sthsth_cli_phase(device, card: str) -> dict:
     return out
 
 
+@_seconds
 def sthsth_train_phase(device, card: str) -> dict:
     """Phase 10 as a whole. The remat check and the CLI run with cuDNN's
     autotuner off, the CLI's setting (phase 5 turned it on for this
     process): with it on, the plain step's peak memory grows by the
     workspaces of the algorithms it picks."""
-    import torch
-
     out = {"steps": sthsth_train_timed(device, card)}
     out["discrete_ratio"] = sthsth_discrete_ratio(device, card)
     out["precision"] = sthsth_precisions(device)
     out["sampler"] = check_continuous_sampler(device)
-    autotune = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    try:
+    with _autotuner(False):
         out["remat"] = check_sthsth_remat(device, card)
         out["cli"] = sthsth_cli_phase(device, card)
-    finally:
-        torch.backends.cudnn.benchmark = autotune
     return out
 
 
@@ -2422,6 +2572,8 @@ def _topk_ties(scores, k: int) -> int:
     return int((top[:, k - 1] == top[:, k]).sum())
 
 
+@_seconds
+@_autotuner(False)
 def plus_forward(device, card: str) -> dict:
     """Phase 11, serving at B=PLUS_SMALL_B (``inference_plus``): with the
     launch counts set to 0 just before, exactly one patch launch and no
@@ -2495,22 +2647,18 @@ def plus_forward(device, card: str) -> dict:
             "frame_index_agreement": agree}
 
 
-def plus_throughput(model16, device, card: str) -> dict:
+@_seconds
+def plus_throughput(model16, device, card: str, gather_rows: dict) -> dict:
     """Phase 11, serving at B=PLUS_B: videos/s of three runs of ten
     forwards (``benchmark.inference_rates``), peak memory, each phase's mean
-    ms over PLUS_FORWARDS forwards by CUDA events; then, at N = B*K, the
-    frame gather (its byte bound: B*K frames read and written) beside the
-    patch kernel on the gathered frames (bit for bit against the plain
-    version; its byte bound, the plain version, a strided and a contiguous
-    ``copy_`` of the same bytes) and ``index_select`` of the same rows."""
+    ms over PLUS_FORWARDS forwards by CUDA events; beside them the rows at N
+    = B*K that ``plus_gather_and_patch`` timed early in the run."""
     import torch
 
     from adafocus_torch.benchmark import inference_rates, make_data
-    from adafocus_torch.models.gfv_plus import forward_plus, gather_frames, inference_plus
-    from adafocus_torch.ops.patch import (
-        extract_patches_at, extract_patches_reference, patch_offsets,
-    )
+    from adafocus_torch.models.gfv_plus import inference_plus
 
+    n, times = gather_rows["n"], gather_rows["times"]
     cfg = model16.cfg
     b, t, s, p, k = PLUS_B, cfg.num_frames, cfg.image_size, cfg.patch_size, cfg.frame_budget
     torch.cuda.synchronize()
@@ -2539,42 +2687,81 @@ def plus_throughput(model16, device, card: str) -> dict:
             phase_ms[name] = phase_ms.get(name, 0.0) + a.elapsed_time(ev) / len(runs)
     if tuple(phase_ms) != PLUS_PHASES:
         raise AssertionError(f"AdaFocus+ phases {tuple(phase_ms)}")
+    res = {"videos_per_s": vps, "phase_ms": phase_ms, "peak_bytes": peak, "n": n,
+           "gather_and_patch": times}
+    print(f"AdaFocus+ {PLUS_POINT} bf16 B={b}: videos/s {vps!r}; phase ms "
+          f"{json.dumps(phase_ms)}; peak memory {peak} B ({peak / 2**30:.2f} GiB); at N={n}: "
+          f"{json.dumps(times)} ({card})", flush=True)
+    del data, frames, small
+    torch.cuda.empty_cache()
+    return res
+
+
+@_seconds
+@_autotuner(True)   # phase 11's setting (phase 5 turned it on)
+def plus_gather_and_patch(device) -> dict:
+    """Phase 11's timed rows at N = B*K, run early in the run (``main``):
+    the serving point's B=PLUS_B frames (``benchmark.make_data``) and the
+    greedy forward's (B, K) frame indices and (B, K, 2) actions
+    (``forward_plus`` on the seeded model); the patch kernel on the gathered
+    frames bit for bit against the plain version; then the frame gather of
+    the (B, T) frames, beside its byte bound (B*K frames read and written);
+    the patch kernel on the gathered frames, beside its byte bound, the
+    plain version, a strided and a contiguous ``copy_`` of the same bytes;
+    and ``index_select`` of the same rows. Each by CUDA events and by the
+    profiler's device spans (``_times``), the plain version by events only.
+    Returns {"n": B*K, "times": {...}}."""
+    import torch
+
+    from adafocus_torch.benchmark import make_data
+    from adafocus_torch.models.gfv import GFV
+    from adafocus_torch.models.gfv_plus import forward_plus, gather_frames
+    from adafocus_torch.ops.patch import (
+        extract_patches_at, extract_patches_reference, patch_offsets,
+    )
+    from adafocus_torch.utils.profiling import events_ms
+
+    cfg = _plus_cfg()
+    model16 = GFV(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    data = make_data(cfg, PLUS_B, device=device)
+    frames, small = data["frames"], data["frames_small"]
     with torch.inference_mode():
         _, aux = forward_plus(model16, frames, small, train=False, patch_mode="policy")
+    del model16
     idx, actions = aux["frame_idx"], aux["actions"]
-    n = b * k
+    b, t, s = frames.shape[:3]
+    p, k = cfg.patch_size, cfg.frame_budget
+    n = idx.numel()
     gathered = gather_frames(frames, idx)
     check_patch_at(gathered, actions, s, p, f"AdaFocus+ B={b} K={k} (N={n}) gathered frames")
     flat = gathered.reshape(n, s, s, 3)
     offs = patch_offsets(actions.reshape(-1, 2), s, p)
-    rows = (torch.arange(b, device=device)[:, None] * t + idx).reshape(-1)
+    rows = (torch.arange(b, device=frames.device)[:, None] * t + idx).reshape(-1)
     frames_bt = frames.reshape(b * t, s, s, 3)
-    out = torch.empty((n, p, p, 3), dtype=frames.dtype, device=device)
+    out = torch.empty((n, p, p, 3), dtype=frames.dtype, device=frames.device)
     o = min(64, s - p)
     window = flat[:, o:o + p, o:o + p, :]
     dense = torch.empty_like(out).copy_(window)
     elem = frames.element_size()
     patch_bytes = 2 * n * p * p * 3 * elem + n * 2 * 4
     gather_bytes = 2 * n * s * s * 3 * elem
-    times = {"gather_ms": _time_ms(lambda: gather_frames(frames, idx)),
-             "index_select_ms": _time_ms(lambda: torch.index_select(frames_bt, 0, rows)),
-             "patch_ms": _time_ms(lambda: extract_patches_at(gathered, actions, s, p)),
-             "patch_plain_ms": _time_ms(lambda: extract_patches_reference(flat, offs, p),
-                                        iters=20),
-             "strided_copy_ms": _time_ms(lambda: out.copy_(window)),
-             "contiguous_copy_ms": _time_ms(lambda: out.copy_(dense)),
-             "patch_bound_ms": patch_bytes / HBM_BYTES_PER_S * 1e3,
-             "gather_bound_ms": gather_bytes / HBM_BYTES_PER_S * 1e3}
-    res = {"videos_per_s": vps, "phase_ms": phase_ms, "peak_bytes": peak, "n": n,
-           "gather_and_patch": times}
-    print(f"AdaFocus+ {PLUS_POINT} bf16 B={b}: videos/s {vps!r}; phase ms "
-          f"{json.dumps(phase_ms)}; peak memory {peak} B ({peak / 2**30:.2f} GiB); at N={n}: "
-          f"{json.dumps(times)} ({card})", flush=True)
+    times = {}
+    for key, fn in (("gather", lambda: gather_frames(frames, idx)),
+                    ("index_select", lambda: torch.index_select(frames_bt, 0, rows)),
+                    ("patch", lambda: extract_patches_at(gathered, actions, s, p)),
+                    ("strided_copy", lambda: out.copy_(window)),
+                    ("contiguous_copy", lambda: out.copy_(dense))):
+        times[f"{key}_ms"], times[f"{key}_device_ms"] = _times(fn, iters=50, warmup=5)
+    times["patch_plain_ms"] = events_ms(lambda: extract_patches_reference(flat, offs, p),
+                                        iters=20)
+    times.update(patch_bound_ms=patch_bytes / HBM_BYTES_PER_S * 1e3,
+                 gather_bound_ms=gather_bytes / HBM_BYTES_PER_S * 1e3)
     del data, frames, small, gathered, flat, out, window, dense, frames_bt
     torch.cuda.empty_cache()
-    return res
+    return {"n": n, "times": times}
 
 
+@_seconds
 def plus_train_timed(device, card: str) -> dict:
     """Phase 11: the ST stage-1 step and the joint stage-2 step (``plus_rl``,
     reward 'random') at B=PLUS_B, TRAIN_WARMUP + TRAIN_TIMED steps each with
@@ -2629,6 +2816,8 @@ def plus_train_timed(device, card: str) -> dict:
     return out
 
 
+@_seconds
+@_autotuner(False)
 def plus_precisions(device) -> dict:
     """Phase 11: one ST stage-1 step and one joint stage-2 step at
     B=PLUS_COMPARE_B in bf16 compute, float32 (TF32 off) and float64, from
@@ -2720,6 +2909,8 @@ def plus_precisions(device) -> dict:
     return out
 
 
+@_seconds
+@_autotuner(False)
 def plus_small_stages(device) -> dict:
     """Phase 11: the ST stage-3 step (two steps) and then the eval step at
     B=PLUS_SMALL_B, each with the launch counts set to 0 just before: one
@@ -2775,6 +2966,7 @@ def _plus_cli_args(*extra) -> list:
             f"model.frame_budget={PLUS_POINT[1]}", "model.plus_rl=true", *extra]
 
 
+@_seconds
 def plus_cli_phase(device, card: str) -> dict:
     """Phase 11: the CLI with ``model.frame_budget=8 model.plus_rl=true``
     (configs/actnet_default.yaml, bf16, B=PLUS_CLI_B, PLUS_CLI_VIDEOS
@@ -2845,25 +3037,22 @@ def plus_cli_phase(device, card: str) -> dict:
     return out
 
 
-def plus_phase(device, card: str) -> dict:
-    """Phase 11 as a whole. The CLI runs with cuDNN's autotuner off, the
-    CLI's setting."""
+@_seconds
+def plus_phase(device, card: str, gather_rows: dict) -> dict:
+    """Phase 11 as a whole, with the rows ``plus_gather_and_patch`` timed
+    early. The CLI runs with cuDNN's autotuner off, the CLI's setting."""
     import torch
 
     fwd = plus_forward(device, card)
     model16 = fwd.pop("model")
-    out = {"forward": fwd, "serving": plus_throughput(model16, device, card)}
+    out = {"forward": fwd, "serving": plus_throughput(model16, device, card, gather_rows)}
     del model16
     torch.cuda.empty_cache()
     out["train"] = plus_train_timed(device, card)
     out["precision"] = plus_precisions(device)
     out["small"] = plus_small_stages(device)
-    autotune = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    try:
+    with _autotuner(False):
         out["cli"] = plus_cli_phase(device, card)
-    finally:
-        torch.backends.cudnn.benchmark = autotune
     return out
 
 
@@ -3096,8 +3285,12 @@ def _int8_timed(qc, in_shape, stride, groups, act, opts, dense, n, gen, device,
     options; a head float32): first held against the plain version on the
     same inputs (``_check_fused_case``; a head ``_check_int8_case``), since
     the launch plan depends on M (``plan_int8_conv``), then kernel, plain
-    version and yardstick ms, with its bound."""
+    version and yardstick ms, with its bound: the kernel's and the
+    yardstick's by CUDA events and by the profiler (``_row_times``), the
+    plain version's by events."""
     import torch
+
+    from adafocus_torch.utils.profiling import events_ms
 
     x = torch.randint(-127, 128, (n,) + in_shape, generator=gen, device=device,
                       dtype=torch.int8)
@@ -3121,17 +3314,16 @@ def _int8_timed(qc, in_shape, stride, groups, act, opts, dense, n, gen, device,
     lib_name, lib = _int8_library(x, qc, stride, groups, dense)
     big = n > INT8_TIME_N[-1]
     with torch.inference_mode():
-        ms = _time_ms(fn, iters=20, warmup=3)
-        plain_ms = _time_ms(plain_fn, iters=1 if big else 3, warmup=1)
-        library_ms = _time_ms(lib, iters=20, warmup=3)
+        times = _row_times(fn, lib, iters=20, warmup=3)
+        plain_ms = events_ms(plain_fn, iters=1 if big else 3, warmup=1)
     moved, ops = _int8_cost(x_in, qc, out_shape, k, opts)
     bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS * 1e3
     del x
     torch.cuda.empty_cache()
-    return {"n": n, "ms": ms, "plain_ms": plain_ms, "library": lib_name,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+    return {"n": n, **times, "plain_ms": plain_ms, "library": lib_name,
+            "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "tops": ops / ms / 1e9, "check": check}
+            "tops": ops / times["device_ms"] / 1e9, "check": check}
 
 
 def _moved(check: dict) -> str:
@@ -3183,8 +3375,9 @@ def _int8_unit_rows(units: list, dense: bool, n_check: int, n_times, gen, device
                              "by_n": times, **check}
         rows.append(row)
         print(f"{kind} {label} {name} {shape} {opts}: "
-              + "; ".join(f"N={n} kernel {t['ms']!r} ms ({t['tops']!r} TOP/s), plain "
-                          f"{t['plain_ms']!r} ms, {t['library']} {t['library_ms']!r} ms, bound "
+              + "; ".join(f"N={n} kernel {t['ms']!r} ms ({t['device_ms']!r} on the device, "
+                          f"{t['tops']!r} TOP/s), plain {t['plain_ms']!r} ms, {t['library']} "
+                          f"{t['library_ms']!r} ms ({t['library_device_ms']!r} on the device), bound "
                           f"{t['bound_ms']!r} ms ({t['bound_by']}), held against plain "
                           f"({_moved(t['check'])})" for n, t in times.items())
               + f"; accumulators equal, {check['double_rounded']} of {check['values']} float32 "
@@ -3233,8 +3426,8 @@ def _int8_kernel_row(name: str, rows: list, line: int, shape: str) -> dict:
     """One kernel's line: each time summed over the forward's launches, at
     the rows' first N (top level) and at each N (``by_n``)."""
     def totals(by):
-        t = {k: sum(r["launches"] * by(r)[k] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        t = _summed_times([(r["launches"], by(r)) for r in rows])
+        t.update({k: sum(r["launches"] * by(r)[k] for r in rows) for k in ("plain_ms", "bound_ms")})
         by_bytes = sum(r["launches"] * by(r)["bound_ms"] for r in rows
                        if by(r)["bound_by"] == "bytes")
         t["bound_by"] = "bytes" if 2 * by_bytes >= t["bound_ms"] else "operations"
@@ -3249,6 +3442,8 @@ def _int8_kernel_row(name: str, rows: list, line: int, shape: str) -> dict:
     return out
 
 
+@_seconds
+@_autotuner(True)   # phase 12's setting (phase 5 turned it on): the yardsticks' algorithms
 def check_int8_kernels(device) -> tuple:
     """Phase 12's kernel check: every int8 unit shape of the flagship's
     glancer (224^2) and focuser (96^2 patches) and of the matched
@@ -3298,14 +3493,17 @@ def check_int8_kernels(device) -> tuple:
         "int8_dwconv", dw, 74, f"flagship glancer depthwise units at 224^2, N={n} frames "
         f"(by_n: also N={INT8_TIME_N[1]}), summed over one forward's units")
     for row in (conv_row, dw_row):
-        print(f"{row['name']}: {row['shape']}: kernel {row['ms']!r} ms, plain "
-              f"{row['plain_ms']!r} ms, library {row['library_ms']!r} ms, bound "
+        print(f"{row['name']}: {row['shape']}: kernel {row['ms']!r} ms ({row['device_ms']!r} on "
+              f"the device), plain {row['plain_ms']!r} ms, library {row['library_ms']!r} ms "
+              f"({row['library_device_ms']!r} on the device), bound "
               f"{row['bound_ms']!r} ms ({row['bound_by']}); by N {row.get('by_n')}; "
               f"{row['double_rounded']} double-rounded outputs", flush=True)
     shapes = flag_rows + matched_rows + [r for rows in head_rows.values() for r in rows]
     return [conv_row, dw_row], shapes
 
 
+@_seconds
+@_autotuner(False)
 def check_fused_backbones(device, card: str) -> dict:
     """Phase 12: each int8 backbone of the flagship (bf16, glancer on
     Q8_SMALL_B x 16 frames of 224^2, focuser on as many 96^2 patches; and
@@ -3443,6 +3641,8 @@ def _patch_actions(store: list):
             m.extract_for_frames = real
 
 
+@_seconds
+@_autotuner(False)
 def q8_forward_checks(device, card: str) -> dict:
     """Phase 12 at B=2, each family (the flagship, the matched sth-sth
     configuration, AdaFocus+ at plus_cfg((96, 8))) in modes int8 and
@@ -3532,6 +3732,7 @@ def q8_forward_checks(device, card: str) -> dict:
     return out, models
 
 
+@_seconds
 def q8_throughput(models: dict, device, card: str) -> tuple:
     """Phase 12's timing at B=Q8_B: videos/s of 3 runs of 10 forwards in
     int8 beside bf16 in the same call, each family (the flagship also in
@@ -3597,6 +3798,7 @@ def q8_throughput(models: dict, device, card: str) -> tuple:
     return out, scales
 
 
+@_seconds
 def q8_cli(device, card: str) -> dict:
     """The evaluate CLI with ``run.quantize=int8`` (and with
     ``run.quantize_heads=true``) on phase 9's synthetic clips from the
@@ -3651,13 +3853,15 @@ def q8_cli(device, card: str) -> dict:
     return out
 
 
-def q8_phase(device, card: str) -> dict:
+@_seconds
+def q8_phase(device, card: str, kernel_rows: tuple) -> dict:
     """Phase 12 as a whole: the int8 kernels against their plain versions and
-    timed, the int8 forwards' checks and launches, the timing, the CLI."""
+    timed (``kernel_rows``: ``check_int8_kernels``' result, run early in the
+    run), the int8 forwards' checks and launches, the timing, the CLI."""
     import torch
 
     start = time.perf_counter()
-    rows, shapes = check_int8_kernels(device)
+    rows, shapes = kernel_rows
     fused = check_fused_backbones(device, card)
     checks, models = q8_forward_checks(device, card)
     timing, scales = q8_throughput(models, device, card)
@@ -3691,15 +3895,15 @@ EXPORT_LAUNCHES = {"bf16": {"extract_patches": 1, "int8_conv": 0, "int8_dwconv":
                             **_NO_FUSED}}
 EXPORT_FORBIDDEN = ("adafocus_torch.models", "jax", "jaxlib", "flax", "adafocus_tpu")
 # the fresh process: load each artifact through adafocus_torch.serving alone,
-# in serve_reloaded (this file imports only the standard library at its top)
+# in serve_reloaded (this file imports only the standard library at its top);
+# it takes its work on its standard input, line by line
 _RELOAD = (
-    "import json, sys, time\n"
+    "import sys, time\n"
     "t0 = time.perf_counter()\n"
     "import torch\n"
     "from adafocus_torch.serving import load_exported\n"
     "import chip_smoke\n"
-    "start_s = time.perf_counter() - t0\n"
-    "print(json.dumps(chip_smoke.serve_reloaded(load_exported, start_s, sys.argv[1:])))\n"
+    "chip_smoke.serve_reloaded(load_exported, time.perf_counter() - t0, sys.stdin, sys.stdout)\n"
 )
 
 
@@ -3745,17 +3949,24 @@ def _videos_per_s(fn, frames, small) -> list:
     return rates
 
 
-def serve_reloaded(load, start_s: float, paths: list) -> dict:
-    """The fresh process's half of phase 13, for each (artifact, inputs,
-    logits) triple of ``paths``: the artifact loaded (``load``, timed); every
-    state tensor of the reloaded module on the inputs' device; one forward
-    with the launch counts set to 0 just before (its logits saved); the
-    reloaded module's videos/s. Then: no model code and no JAX imported."""
+def serve_reloaded(load, start_s: float, commands, out) -> None:
+    """The fresh process's half of phase 13. Each line of ``commands`` before
+    ``serve`` is a JSON [artifact, inputs, logits] triple of paths: the
+    artifact loaded (``load``, timed), its inputs read onto their device,
+    every state tensor of the reloaded module on that device; a line
+    ``{"loaded": i, "load_s": s}`` on ``out`` answers it. At ``serve``, for
+    each artifact in turn: one forward with the launch counts set to 0 just
+    before (its logits saved), the reloaded module's videos/s. Then: no model
+    code and no JAX imported; the answer is ``{"start_s": s, "rows": [...]}``
+    on ``out``."""
     import torch
 
     _export_backends()
-    rows = []
-    for artifact, inputs_path, out_path in zip(paths[::3], paths[1::3], paths[2::3]):
+    loaded = []
+    for line in commands:
+        if line.strip() == "serve":
+            break
+        artifact, inputs_path, out_path = json.loads(line)
         t0 = time.perf_counter()
         fn = load(artifact)
         load_s = time.perf_counter() - t0
@@ -3767,20 +3978,24 @@ def serve_reloaded(load, start_s: float, paths: list) -> dict:
         if off:
             raise AssertionError(f"{artifact}: {len(off)} state tensors of the reloaded module "
                                  f"are not on {frames.device}: {off[:5]}")
+        loaded.append((fn, frames, small, out_path, {"artifact": artifact, "load_s": load_s,
+                                                     "state_tensors": len(state)}))
+        print(json.dumps({"loaded": len(loaded) - 1, "load_s": load_s}), file=out, flush=True)
+    rows = []
+    for fn, frames, small, out_path, row in loaded:
         _q8_counts(reset=True)
         logits = fn(frames, small)
         if frames.is_cuda:
             torch.cuda.synchronize()
-        launches = _q8_counts()
+        row["launches"] = _q8_counts()
         torch.save(logits.cpu(), out_path)
-        rows.append({"load_s": load_s, "launches": launches, "state_tensors": len(state),
-                     "videos_per_s": _videos_per_s(fn, frames, small)})
-        del fn, inputs, frames, small
+        row["videos_per_s"] = _videos_per_s(fn, frames, small)
+        rows.append(row)
     bad = sorted(m for m in sys.modules
                  if any(m == f or m.startswith(f + ".") for f in EXPORT_FORBIDDEN))
     if bad:
         raise AssertionError(f"loading the artifacts imported {bad}")
-    return {"start_s": start_s, "rows": rows}
+    print(json.dumps({"start_s": start_s, "rows": rows}), file=out, flush=True)
 
 
 def _export_cases(q8_scales) -> list:
@@ -3795,45 +4010,73 @@ def _export_cases(q8_scales) -> list:
             ("flagship", flagship(), "int8", q8_scales)]
 
 
+# the cases each exporting process of phase 13 exports, by _export_cases'
+# index: export_run's own, and its helper's (export_helper), at once
+EXPORT_SPLIT = ((0, 2), (1, 3))
+# the helper exporting process: export_helper on the card, the scales loaded
+_EXPORT_HELPER = (
+    "import sys, torch\n"
+    "import chip_smoke\n"
+    "chip_smoke.export_helper(torch.device(sys.argv[1]), torch.load(sys.argv[2]), sys.argv[3],\n"
+    "                         [int(i) for i in sys.argv[4:]])\n"
+)
 # the exporting process of phase 13: export_run on the card, the scales loaded
 _EXPORT = (
     "import json, sys, torch\n"
     "import chip_smoke\n"
-    "out = chip_smoke.export_run(torch.device(sys.argv[1]), sys.argv[2], torch.load(sys.argv[3]))\n"
+    "out = chip_smoke.export_run(torch.device(sys.argv[1]), sys.argv[2], torch.load(sys.argv[3]),\n"
+    "                            gate=sys.stdin.readline)\n"
     "print(json.dumps(out))\n"
 )
 
 
-def export_phase(device, card: str, q8_scales) -> dict:
+@_seconds
+def export_phase(device, card: str, q8_scales, beside=lambda: None) -> tuple:
     """Phase 13 as a whole, in a fresh process of its own (``export_run``):
     in this one, cuDNN's autotuner picked algorithms for the same shapes in
     earlier phases, and a library keeps those picks, so this process's eager
-    forward would run other kernels than the reloaded one's."""
+    forward would run other kernels than the reloaded one's. ``beside()``,
+    untimed work, runs here while that process exports; it times nothing
+    until ``beside`` has returned and this process tells it to go on.
+    Returns (the phase's result, ``beside()``'s)."""
     import tempfile
 
     import torch
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, open(os.path.join(tmp, "err"), "w+") as err:
         path = os.path.join(tmp, "scales.pt")
         torch.save(q8_scales, path)
-        proc = subprocess.run([sys.executable, "-c", _EXPORT, str(device), card, path],
-                              cwd=ROOT, capture_output=True, text=True, timeout=1000)
-    lines = proc.stdout.strip().splitlines()
+        proc = subprocess.Popen([sys.executable, "-c", _EXPORT, str(device), card, path],
+                                cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=err, text=True)
+        try:
+            result = beside()
+            try:
+                proc.stdin.write("go\n")
+                proc.stdin.flush()
+            except OSError:   # it died: its error is below
+                pass
+            out, _ = proc.communicate(timeout=1000)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        errors = err.read()
+    lines = out.strip().splitlines()
     print("\n".join(lines[:-1]), flush=True)
     if proc.returncode != 0:
         raise AssertionError(f"export: the exporting process failed (rc {proc.returncode}):\n"
-                             f"{proc.stderr[-4000:]}")
-    return json.loads(lines[-1])
+                             f"{errors[-4000:]}")
+    return json.loads(lines[-1]), result
 
 
-def export_run(device, card: str, q8_scales) -> dict:
-    """Phase 13's exporting process: each case of ``_export_cases``
-    exported at B=EXPORT_B (export s), saved (save s, MB), its eager logits
-    and videos/s taken; then one fresh process reloads and serves every
-    artifact (its start-up s; each artifact's load s, launches, videos/s),
-    and each artifact's logits are held against the eager ones."""
-    import tempfile
-
+def _export_case(i: int, case: tuple, device, tmp: str) -> tuple:
+    """Case ``i`` of ``_export_cases``: the seeded model exported at
+    B=EXPORT_B (export s), saved (save s, MB) into ``tmp`` beside its inputs,
+    its eager logits saved there too. Returns (its key, its row, the paths
+    [artifact, inputs, reloaded logits], (the eager forward, frames,
+    small))."""
     import torch
 
     from adafocus_torch.benchmark import inference_fn, make_data
@@ -3841,58 +4084,163 @@ def export_run(device, card: str, q8_scales) -> dict:
     from adafocus_torch.models.quant_inference import family_q8, prepare_q8
     from adafocus_torch.serving import export_inference, save_exported
 
+    name, cfg, mode, scales = case
+    model = GFV(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
+    data = make_data(cfg, EXPORT_B, device=device, seed=SEED + 140)
+    frames, small = data["frames"], data["frames_small"]
+    t0 = time.perf_counter()
+    ep = export_inference(model, EXPORT_B, mode=mode, scales=scales)
+    t1 = time.perf_counter()
+    path = os.path.join(tmp, f"{i}.pt2")
+    save_exported(ep, path)
+    t2 = time.perf_counter()
+    del ep
+    torch.save(data, os.path.join(tmp, f"{i}_in.pt"))
+    if mode == "int8":
+        qw = prepare_q8(model, scales)
+        forward = family_q8(cfg)
+
+        def eager(f, s):
+            return forward(model, scales, f, s, device=device, qw=qw)
+    else:
+        eager = inference_fn(model)
+    torch.save(eager(frames, small).float().cpu(), os.path.join(tmp, f"{i}_want.pt"))
+    row = {"export_s": t1 - t0, "save_s": t2 - t1, "mb": os.path.getsize(path) / 1e6}
+    paths = [path, os.path.join(tmp, f"{i}_in.pt"), os.path.join(tmp, f"{i}_out.pt")]
+    return f"{name} {mode}", row, paths, (eager, frames, small)
+
+
+def export_helper(device, q8_scales, tmp: str, indices: list) -> None:
+    """Phase 13's helper exporting process: the cases ``indices`` of
+    ``_export_cases`` exported (``_export_case``) beside ``export_run``'s
+    own, a line ``{"key", "row", "paths"}`` on the standard output as each is
+    saved; then, at a ``go`` line on the standard input, each one's eager
+    videos/s, in a last line ``{"eager": {key: videos/s}}``."""
+    _export_backends()
+    cases, runs = _export_cases(q8_scales), {}
+    for i in indices:
+        key, row, paths, runs[key] = _export_case(i, cases[i], device, tmp)
+        print(json.dumps({"key": key, "row": row, "paths": paths}), flush=True)
+    sys.stdin.readline()
+    print(json.dumps({"eager": {k: _videos_per_s(*run) for k, run in runs.items()}}),
+          flush=True)
+
+
+def export_run(device, card: str, q8_scales, gate=lambda: None) -> dict:
+    """Phase 13's exporting process. One fresh process that reloads and
+    serves every artifact (``serve_reloaded``) starts first, so that its
+    start-up and loads run beside the exports, and a helper exporting
+    process (``export_helper``) with it: each exports its share of
+    ``_export_cases`` (``EXPORT_SPLIT``, ``_export_case``: export s, save
+    s, MB, the eager logits), and each artifact goes to the serving process
+    to load as soon as it is saved. When that process has loaded all four
+    and ``gate()`` has returned (the parent's untimed work beside this phase
+    is done), each case's eager videos/s is timed, this process's cases
+    first, then the helper's, then the serving process's forwards and
+    videos/s: each timing with the card otherwise idle. Each artifact's
+    logits are held against the eager ones."""
+    import tempfile
+    import threading
+
+    import torch
+
     start = time.perf_counter()
     _export_backends()
-    out, paths = {}, []
-    with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, cfg, mode, scales) in enumerate(_export_cases(q8_scales)):
-            model = GFV(cfg, device=device, generator=torch.Generator().manual_seed(SEED))
-            data = make_data(cfg, EXPORT_B, device=device, seed=SEED + 140)
-            frames, small = data["frames"], data["frames_small"]
-            t0 = time.perf_counter()
-            ep = export_inference(model, EXPORT_B, mode=mode, scales=scales)
-            t1 = time.perf_counter()
-            path = os.path.join(tmp, f"{i}.pt2")
-            save_exported(ep, path)
-            t2 = time.perf_counter()
-            del ep
-            if mode == "int8":
-                qw = prepare_q8(model, scales)
-                forward = family_q8(cfg)
+    cases = _export_cases(q8_scales)
+    rows, paths, runs, helped = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp, open(os.path.join(tmp, "err"), "w+") as err, \
+            open(os.path.join(tmp, "helper_err"), "w+") as helper_err:
+        scales_path = os.path.join(tmp, "scales.pt")
+        torch.save(q8_scales, scales_path)
+        t_proc = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", _RELOAD], cwd=ROOT, text=True,
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
+        helper = subprocess.Popen(
+            [sys.executable, "-c", _EXPORT_HELPER, str(device), scales_path, tmp,
+             *map(str, EXPORT_SPLIT[1])], cwd=ROOT, text=True, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=helper_err)
+        lock = threading.Lock()   # both hand artifacts to the serving process
 
-                def eager(f, s, model=model, forward=forward, scales=scales, qw=qw):
-                    return forward(model, scales, f, s, device=device, qw=qw)
-            else:
-                eager = inference_fn(model)
-            want = eager(frames, small).float().cpu()
-            torch.save(data, os.path.join(tmp, f"{i}_in.pt"))
-            paths += [path, os.path.join(tmp, f"{i}_in.pt"), os.path.join(tmp, f"{i}_out.pt")]
-            out[f"{name} {mode}"] = {
-                "export_s": t1 - t0, "save_s": t2 - t1, "mb": os.path.getsize(path) / 1e6,
-                "eager_videos_per_s": _videos_per_s(eager, frames, small), "want": want}
-            del model, data, frames, small, eager
+        def hand_over(artifact_paths):
+            with lock:
+                proc.stdin.write(json.dumps(artifact_paths) + "\n")
+                proc.stdin.flush()
+
+        def relay():   # the helper's artifacts, as it saves them
+            for _ in EXPORT_SPLIT[1]:
+                line = helper.stdout.readline()
+                if not line:
+                    return
+                done = json.loads(line)
+                rows[done["key"]], paths[done["key"]] = done["row"], done["paths"]
+                helped[done["key"]] = True
+                hand_over(done["paths"])
+
+        relay_thread = threading.Thread(target=relay)
+        relay_thread.start()
+        try:
+            for i in EXPORT_SPLIT[0]:
+                key, rows[key], paths[key], runs[key] = _export_case(i, cases[i], device, tmp)
+                hand_over(paths[key])
+            relay_thread.join(timeout=900)
+            if len(helped) != len(EXPORT_SPLIT[1]):
+                raise ValueError("the helper exporting process exported "
+                                 f"{sorted(helped)} of cases {EXPORT_SPLIT[1]}")
+            for _ in cases:   # the serving process has loaded every artifact
+                json.loads(proc.stdout.readline())
+            gate()
+            for key, run in runs.items():
+                rows[key]["eager_videos_per_s"] = _videos_per_s(*run)
+            del runs, run
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", _RELOAD, *paths], cwd=ROOT,
-                              capture_output=True, text=True, timeout=900)
-        process_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"export: the fresh process failed (rc {proc.returncode}):\n"
-                                 f"{proc.stderr[-4000:]}")
-        served = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(f"export: one fresh process served {len(out)} artifacts in {process_s!r} s "
-              f"(start-up and imports {served['start_s']!r} s) ({card})", flush=True)
-        for i, ((key, row), rel_row) in enumerate(zip(out.items(), served["rows"])):
-            mode = key.split()[-1]
-            want = row.pop("want")
-            got = torch.load(paths[3 * i + 2]).float()
+            helper.stdin.write("go\n")
+            helper.stdin.flush()
+            for key, rates in json.loads(helper.stdout.readline())["eager"].items():
+                rows[key]["eager_videos_per_s"] = rates
+            helper.wait(timeout=900)
+            proc.stdin.write("serve\n")
+            proc.stdin.close()
+            served = json.loads(proc.stdout.readline())
+            proc.wait(timeout=900)
+        except (OSError, ValueError, subprocess.TimeoutExpired) as e:
+            # a process died or hung: a broken pipe, no answer
+            for p in (proc, helper):
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            relay_thread.join()
+            err.seek(0)
+            helper_err.seek(0)
+            raise AssertionError(f"export: a process failed (serving rc {proc.returncode}, "
+                                 f"helper rc {helper.returncode}): {e}\n{err.read()[-3000:]}"
+                                 f"\n{helper_err.read()[-3000:]}") from e
+        process_s = time.perf_counter() - t_proc
+        if proc.returncode != 0 or helper.returncode != 0:
+            err.seek(0)
+            helper_err.seek(0)
+            raise AssertionError(f"export: a process failed (serving rc {proc.returncode}, "
+                                 f"helper rc {helper.returncode}):\n{err.read()[-3000:]}\n"
+                                 f"{helper_err.read()[-3000:]}")
+        print(f"export: one fresh process served {len(cases)} artifacts in {process_s!r} s "
+              f"(start-up and imports {served['start_s']!r} s; started with the phase, its "
+              f"loads beside two exporting processes) ({card})", flush=True)
+        served_rows = {r.pop("artifact"): r for r in served["rows"]}
+        out = {}
+        for name, _, mode, _ in cases:   # the cases' order
+            key = f"{name} {mode}"
+            row = out[key] = rows[key]
+            artifact, _, out_path = paths[key]
+            want = torch.load(artifact[:-len(".pt2")] + "_want.pt")
+            got = torch.load(out_path).float()
             if got.shape != want.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"export {key}: logits {tuple(got.shape)} not finite or "
                                      f"not {tuple(want.shape)}")
             rel = ((got - want).abs().max() / want.abs().max()).item()
-            row.update(rel_row, rel_err=rel)
+            row.update(served_rows[artifact], rel_err=rel)
             print(f"export {key} B={EXPORT_B}: export {row['export_s']!r} s, save "
-                  f"{row['save_s']!r} s, {row['mb']!r} MB ({row['state_tensors']} state "
+                  f"{row['save_s']!r} s (both beside the other exporting process and phase 14 "
+                  f"(b), (c): not comparable with a serial export's), {row['mb']!r} MB "
+                  f"({row['state_tensors']} state "
                   f"tensors on the card); fresh-process load {row['load_s']!r} s; launches "
                   f"{row['launches']}; reloaded vs eager logits max|d|/max|eager| {rel!r} "
                   f"(limit {EXPORT_REL_TOL}); videos/s reloaded {row['videos_per_s']!r}, eager "
@@ -3977,6 +4325,7 @@ def _dp_states(cfg, stage: int, device, replicas):
     return (plain, _dp_step(plain, stage, None)), (group, _dp_step(group, stage, replicas))
 
 
+@_seconds
 def dp_one_rank(device, card: str, tmp: str) -> dict:
     """Phase 14 (a): the one-rank NCCL group at the flagship's width."""
     import torch
@@ -4204,6 +4553,7 @@ def _dp_reference(device) -> dict:
     return out
 
 
+@_seconds
 def dp_two_ranks(device, card: str, tmp: str) -> dict:
     """Phase 14 (b): two ranks sharing the card, against this process."""
     import torch
@@ -4271,32 +4621,38 @@ def dp_two_ranks(device, card: str, tmp: str) -> dict:
     return out
 
 
-def dp_dryrun(card: str) -> dict:
-    """Phase 14 (c): the dry run over one rank, in a process of its own."""
-    start = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "adafocus_torch.parallel.dryrun", "--ranks",
-                           "1"], cwd=ROOT, capture_output=True, text=True, timeout=DP_TIMEOUT)
-    seconds = time.perf_counter() - start
-    ok = [ln for ln in proc.stdout.splitlines() if "dryrun --ranks 1" in ln and " ok:" in ln]
-    if proc.returncode != 0 or not ok:
-        raise AssertionError(f"dry run exited {proc.returncode}:\n{proc.stdout[-3000:]}"
-                             f"\n{proc.stderr[-3000:]}")
-    print(f"{ok[0]} -- {seconds!r} s in all, the process's start included ({card})",
-          flush=True)
-    return {"seconds": seconds, "line": ok[0]}
-
-
-def dp_phase(device, card: str) -> dict:
-    """Phase 14: (a), (b) and (c); each raises on failure."""
+@_seconds
+def dp_dryrun(card: str, beside) -> tuple:
+    """Phase 14 (c): the dry run over one rank, in a process of its own. It
+    times nothing, so it runs while ``beside()`` (untimed work) runs here.
+    Returns (its result, ``beside()``'s)."""
     import tempfile
+    import threading
 
     start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        out = {"one_rank": dp_one_rank(device, card, tmp)}
-        out["two_ranks"] = dp_two_ranks(device, card, tmp)
-    out["dryrun"] = dp_dryrun(card)
-    out["seconds"] = time.perf_counter() - start
-    return out
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "adafocus_torch.parallel.dryrun",
+                                 "--ranks", "1"], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        ended = []   # the process's end on the host clock
+        watch = threading.Thread(target=lambda: ended.append((proc.wait(), time.perf_counter())))
+        watch.start()
+        try:
+            result = beside()
+            watch.join(timeout=max(1.0, start + DP_TIMEOUT - time.perf_counter()))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            watch.join()
+        log.seek(0)
+        text = log.read()
+    seconds = ended[0][1] - start
+    ok = [ln for ln in text.splitlines() if "dryrun --ranks 1" in ln and " ok:" in ln]
+    if proc.returncode != 0 or not ok:
+        raise AssertionError(f"dry run exited {proc.returncode}:\n{text[-6000:]}")
+    print(f"{ok[0]} -- {seconds!r} s in all, the process's start included; it ran beside "
+          f"phase 14 (b) ({card})", flush=True)
+    return {"seconds": seconds, "line": ok[0]}, result
 
 
 # ---------------------------------------------------------------------------
@@ -4349,6 +4705,7 @@ def _tf32_off():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+@_seconds
 def tool_convert(device, card: str, tmp: str) -> dict:
     """(a): the converter's CLI on both reference architectures, the port's
     backbones against the references. Returns (the results, the converted
@@ -4417,6 +4774,7 @@ def tool_convert(device, card: str, tmp: str) -> dict:
     return out, focuser
 
 
+@_seconds
 def tool_warm_start_cli(device, card: str, tmp: str, converted: dict) -> dict:
     """(b): the train CLI's stage 1 from the converted focuser (phase 9's
     arguments, one epoch); the focuser checked in the state that ``main``
@@ -4494,6 +4852,7 @@ def _int8_split(events: list, rows: list) -> dict:
     return {k: {"ms": v / TOOL_FORWARDS, "share_of_busy": v / total} for k, v in split.items()}
 
 
+@_seconds
 def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> dict:
     """(c) and (d) on the bf16 flagship (the weights of phases 4, 5 and 12)."""
     import torch
@@ -4601,6 +4960,7 @@ def tool_profiles(device, card: str, tmp: str, q8_scales, patch_ms: float) -> di
     return out
 
 
+@_seconds
 def tool_variants(device, card: str) -> dict:
     """(e): each variant's pooled features in bf16 against float32 and its
     bf16 ms, at the focus shape, timed with cuDNN's autotuner off and then
@@ -4609,6 +4969,7 @@ def tool_variants(device, card: str) -> dict:
     import torch
 
     from adafocus_torch.models import resnet
+    from adafocus_torch.utils.profiling import events_ms
 
     gen = torch.Generator().manual_seed(SEED + 151)
     x32 = torch.randn((VARIANT_N, 3, 96, 96), generator=gen).to(device)
@@ -4628,7 +4989,7 @@ def tool_variants(device, card: str) -> dict:
             ms = {}
             for tune in (False, True):
                 torch.backends.cudnn.benchmark = tune
-                ms[f"autotuner_{'on' if tune else 'off'}"] = _time_ms(
+                ms[f"autotuner_{'on' if tune else 'off'}"] = events_ms(
                     lambda: m16.features(x16), iters=10, warmup=3)
             out[name] = {"rel_err": rel, "max_abs_err": d, "bf16_ms": ms,
                          "params": sum(p.numel() for p in m32.parameters()),
@@ -4643,6 +5004,7 @@ def tool_variants(device, card: str) -> dict:
     return out
 
 
+@_seconds
 def tool_phase(device, card: str, q8_scales, patch_ms: float) -> dict:
     """Phase 15: (a) to (e); each raises on failure."""
     import tempfile
@@ -4659,15 +5021,23 @@ def tool_phase(device, card: str, q8_scales, patch_ms: float) -> dict:
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     start = time.perf_counter()
+    phase_s, last = {}, [start, 0]   # each phase's host seconds; its first call
 
     def done(what):
-        print(f"{what} done at {time.perf_counter() - start:.1f} s", flush=True)
+        now = time.perf_counter()
+        phase_s[what] = now - last[0]
+        calls = "; ".join(f"{n} {t:.1f}" for n, t in CALL_SECONDS[last[1]:])
+        last[:] = now, len(CALL_SECONDS)
+        print(f"{what} done at {now - start:.1f} s ({phase_s[what]:.1f} s; calls, s: {calls})",
+              flush=True)
 
     device = torch.device("cuda")
     card = subprocess.run(
@@ -4678,22 +5048,25 @@ def main() -> int:
 
     from adafocus_torch.ops import _kernels
 
-    build_s = _kernels.build()
-    print(f"kernels built in {build_s:.2f} s", flush=True)
-    for name, log in _kernels.build_logs.items():
+    build_s, dumps = build_kernels()
+    print(f"kernels built in {max(_kernels.build_seconds.values()):.2f} s (each library: "
+          f"{json.dumps(_kernels.build_seconds)}); built and SASS dumped in {build_s:.2f} s",
+          flush=True)
+    for name in _kernels.SIGNATURES:
         # -Xptxas -v: per kernel, its entry name, then its spill and register lines
         fn = ""
-        for ln in log.splitlines():
+        for ln in _kernels.build_logs[name].splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 fn = m.group(1)
             elif ("Used" in ln and "registers" in ln) or "spill stores" in ln:
                 print(f"nvcc {name} {fn}: {ln.split(':', 1)[-1].strip()}", flush=True)
-    sass = tensor_core_instructions()
+    sass = tensor_core_instructions(dumps)
     done("phase 2 (build, SASS)")
 
     from adafocus_torch.benchmark import sthsth_cfg
     from adafocus_torch.models.gfv import GFV, flagship
+    from adafocus_torch.utils.profiling import host_bound
     from port_patch_times import flagship_inputs, profile_phases
 
     model16 = GFV(flagship(), device=device,
@@ -4704,9 +5077,11 @@ def main() -> int:
     for row in patch_shapes:
         print(f"extract_patches {row['shape']} (plan {tuple(row['plan'].values())}): kernel "
               f"{row['us']!r} us ({row['dev_us']!r} on the device, {row['tb_per_s']!r} TB/s, "
-              f"{row['share_of_bound']!r} of the bound), plain {row['plain_us']!r} us, strided copy_ "
-              f"{row['strided_copy_us']!r} us, contiguous copy_ {row['contiguous_copy_us']!r} "
-              f"us, bound {row['bound_us']!r} us ({card})", flush=True)
+              f"{row['share_of_bound']!r} of the bound; host-bound {row['host_bound']}), plain "
+              f"{row['plain_us']!r} us, strided copy_ {row['strided_copy_us']!r} us "
+              f"({row['strided_copy_dev_us']!r} on the device), contiguous copy_ "
+              f"{row['contiguous_copy_us']!r} us ({row['contiguous_copy_dev_us']!r} on the "
+              f"device), bound {row['bound_us']!r} us ({card})", flush=True)
     rows = [patch_row]
     done("phase 3, patch kernel")
     fused_rows, per_shape = check_fused_blocks(model16, device, sass)
@@ -4714,6 +5089,12 @@ def main() -> int:
     done("phase 3, fused blocks")
     matched_rows, matched_shapes = check_matched_blocks(model_sth, device, sass)
     done("phase 3, fused blocks in the matched configuration's TSM split")
+    # the timed kernel rows of phases 12 and 11 run here, early: late in this
+    # long-lived process the profiler loses device spans (a few of them, or
+    # all; port_patch_times.measured_device_ms), early it sees them all
+    int8_rows = check_int8_kernels(device)
+    plus_rows = plus_gather_and_patch(device)
+    done("phases 12 and 11, their kernel rows, run early")
     launches = flagship_forward(model16, device)["launches"]
     done("phase 4")
     # each kernel's count from the run of its own path: the library-conv
@@ -4727,7 +5108,7 @@ def main() -> int:
               f"{json.dumps(phases)} ({card})", flush=True)
     torch.backends.cudnn.benchmark = True
     frames, small = flagship_inputs(model16, device)
-    prof = profile_phases(model16, frames, small)
+    prof = _seconds(profile_phases)(model16, frames, small)
     ext = prof["extract"]
     print(f"extraction phase, profiled, bf16 B=64 T=16 cuDNN path: window "
           f"{ext['window_ms']!r} ms = patch kernel {ext['patch_kernel_ms']!r} + other kernels "
@@ -4758,7 +5139,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     import port_bench
 
-    bench = port_bench.bench(device)
+    bench = _seconds(port_bench.bench)(device)
     done("phase 8")
     cli = cli_phase(device, card)
     step_only = {1: train["videos_per_s"], 2: stage2["videos_per_s"]}
@@ -4772,17 +5153,23 @@ def main() -> int:
     done("phase 9")
     sthsth = sthsth_train_phase(device, card)
     done("phase 10")
-    plus = plus_phase(device, card)
+    plus = plus_phase(device, card, plus_rows)
     done("phase 11")
-    q8 = q8_phase(device, card)
-    done(f"phase 12 ({q8['seconds']:.1f} s)")
+    q8 = q8_phase(device, card, int8_rows)
+    done("phase 12")
     q8_scales = q8.pop("flagship_scales")
-    export = export_phase(device, card, q8_scales)
-    done(f"phase 13 ({export['seconds']:.1f} s)")
-    dp = dp_phase(device, card)
-    done(f"phase 14 ({dp['seconds']:.1f} s)")
+    # phase 14 (a) times steps: it runs alone, first; phase 13's exports and
+    # loads, 14 (b) and 14 (c) time nothing: they run at once, then phase
+    # 13's timings run with the card otherwise idle
+    with tempfile.TemporaryDirectory() as dp_tmp:
+        dp = {"one_rank": dp_one_rank(device, card, dp_tmp)}
+        done("phase 14 (a)")
+        export, (dp["dryrun"], dp["two_ranks"]) = export_phase(
+            device, card, q8_scales,
+            beside=lambda: dp_dryrun(card, lambda: dp_two_ranks(device, card, dp_tmp)))
+    done("phase 13, with 14 (b) and (c) beside its exports")
     tools = tool_phase(device, card, q8_scales, ext["patch_kernel_ms"])
-    done(f"phase 15 ({tools['seconds']:.1f} s)")
+    done("phase 15")
     # each kernel's count from the run of this slice's main path (phase 14,
     # the patch kernel; below), for the int8 kernels phase 13's and for the
     # blocks the matched sth-sth forward's fused path; the counts of the
@@ -4837,21 +5224,24 @@ def main() -> int:
     patch_matched = patch_shapes[2]   # port_patch_times.SHAPES: the sth-sth B=64 call
     gp = plus["serving"]["gather_and_patch"]
     rows[0]["plus"] = {
-        "ms": gp["patch_ms"], "plain_ms": gp["patch_plain_ms"], "bound_ms": gp["patch_bound_ms"],
-        "bound_by": "bytes", "library_ms": gp["strided_copy_ms"],
-        "gather_ms": gp["gather_ms"], "gather_bound_ms": gp["gather_bound_ms"],
+        "ms": gp["patch_ms"], "device_ms": gp["patch_device_ms"],
+        "host_bound": host_bound(gp["patch_ms"], gp["patch_device_ms"]),
+        "plain_ms": gp["patch_plain_ms"], "bound_ms": gp["patch_bound_ms"], "bound_by": "bytes",
+        "library_ms": gp["strided_copy_ms"], "library_device_ms": gp["strided_copy_device_ms"],
+        "library_host_bound": host_bound(gp["strided_copy_ms"], gp["strided_copy_device_ms"]),
+        "gather_ms": gp["gather_ms"], "gather_device_ms": gp["gather_device_ms"],
+        "gather_bound_ms": gp["gather_bound_ms"],
         "shape": f"AdaFocus+ B={PLUS_B} K={PLUS_POINT[1]}: N={plus['serving']['n']} gathered "
                  f"224x224x3 frames P={PLUS_POINT[0]} bf16"}
     rows[0]["matched"] = {
-        "ms": patch_matched["us"] / 1e3, "plain_ms": patch_matched["plain_us"] / 1e3,
-        "bound_ms": patch_matched["bound_us"] / 1e3, "bound_by": "bytes",
-        "library_ms": patch_matched["strided_copy_us"] / 1e3,
+        **_patch_times(patch_matched),
         "shape": f"{patch_matched['shape']}: N={patch_matched['n']} "
                  f"{patch_matched['frames']} P={patch_matched['p']} bf16"}
     for row, mrow in zip(rows[1:], matched_rows):
         row["launches"] = matched["launches"]["on"][row["name"]]
-        row["matched"] = {k: mrow[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms", "max_abs_err", "shape")}
+        row["matched"] = {k: mrow[k] for k in (
+            "ms", "device_ms", "host_bound", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "library_host_bound", "max_abs_err", "shape")}
     rows += q8["kernel_rows"]
     # the export path, the flagship's int8 artifact reloaded in a fresh
     # process, launches the patch kernel and both int8 kernels through their
@@ -4892,7 +5282,10 @@ def main() -> int:
     print(json.dumps({"export": export}), flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"tooling": tools}), flush=True)
+    print(json.dumps({"call_seconds": CALL_SECONDS}), flush=True)
     print(card, flush=True)
+    print(json.dumps({"seconds": {"total": time.perf_counter() - start, "phases": phase_s,
+                                  "device_timings": PROFILED}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

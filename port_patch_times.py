@@ -13,10 +13,13 @@ trace goes beside it):
   (each patch byte read once and written once, plus the offsets, over
   3.35 TB/s) and two ``Tensor.copy_`` yardsticks of the same bytes: a
   strided copy of one window of the frames, and a copy of a contiguous
-  tensor of the patches' shape. Each is timed twice: by CUDA events around
-  back-to-back calls (``*_us``: what a caller sees, host work included
-  where the host is slower than the device) and by the profiler's kernel
-  durations (``*_dev_us``: device time only);
+  tensor of the patches' shape. Each is timed twice
+  (``adafocus_torch.utils.profiling``): by CUDA events around back-to-back
+  calls (``*_us``: what a caller sees, host work included where the host
+  is slower than the device) and by the profiler's device spans
+  (``*_dev_us``: device time only). The rate and the share of the bound
+  are the device time's; ``host_bound`` marks a shape whose events exceed
+  its device time by more than 1.5x;
 - ``profile``: ``torch.profiler`` over a few bf16 flagship forwards at
   B=64, T=16 on the cuDNN path (``fused="auto"``), each phase inside a
   ``record_function`` range. For each phase: its device window (from the
@@ -49,41 +52,35 @@ SHAPES = (
 PHASES = ("glance", "policy", "extract", "focus", "classify")
 
 
-def events_us(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time of ``fn`` in us, from CUDA events around ``iters`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) * 1e3 / iters
+# the profiles ``measured_device_ms`` takes in turn, until one sees every
+# call's device work: (seconds the capture stays open on each side of the
+# calls, read from a written trace: ``profiling.device_profile``)
+DEVICE_PROFILES = ((0.0, False), (0.015, True), (0.1, False), (0.1, True), (0.5, False),
+                   (0.5, True))
 
 
-def device_us(fn, iters: int = 20):
-    """Mean device time of ``fn`` in us: the durations of the kernels,
-    copies and memsets that the profiler saw on the device over ``iters``
-    calls, summed, over ``iters``. None when it saw none."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def measured_device_ms(fn, iters: int = 20, profiles=DEVICE_PROFILES) -> tuple:
+    """(``profiling.device_ms`` of ``fn`` over ``iters`` calls, the profiles
+    it took): a profile that saw no device work, or not every call's as a
+    one-call profile taken the same way saw it, is taken again as the next of
+    ``profiles`` says; after the last this raises, naming what each saw."""
+    import collections
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        return None
-    return sum(e.time_range.elapsed_us() for e in dev) / iters
+    from adafocus_torch.utils.profiling import device_events, device_profile, per_call_ms
+
+    seen = []
+    for attempt, (settle, written) in enumerate(profiles, 1):
+        reference = device_profile(fn, 1, settle, written)
+        events = device_profile(fn, iters, settle, written)
+        ms = per_call_ms(events, iters, reference)
+        if ms is not None:
+            return ms, attempt
+        names = [collections.Counter(e["name"][:48] for e in device_events(ev))
+                 for ev in (reference, events)]
+        seen.append(f"settle {settle} s{', written' if written else ''}: one call "
+                    f"{dict(names[0])}, {iters} calls {dict(names[1])}")
+    raise AssertionError(f"no profile of {iters} calls saw every call's device work: "
+                         + "; ".join(seen))
 
 
 def make_inputs(shape, device, gen):
@@ -114,8 +111,12 @@ def time_shapes(extracts, device, shapes=SHAPES) -> list:
     """Each ``extracts[label](frames, offsets, P)`` and both copy_
     yardsticks at each shape: events and profiler times in us (``us`` and
     ``dev_us`` for the label "kernel", ``<label>_us`` and ``<label>_dev_us``
-    for the others), bound in us."""
+    for the others), bound in us; TB/s, the share of the bound and
+    ``host_bound`` of the kernel from its device time. Raises where the
+    profiler did not see each call's device work (``measured_device_ms``)."""
     import torch
+
+    from adafocus_torch.utils.profiling import events_ms, host_bound
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     rows = []
@@ -133,10 +134,11 @@ def time_shapes(extracts, device, shapes=SHAPES) -> list:
                "bound_us": shape_bytes(shape) / HBM_BYTES_PER_S * 1e6}
         for key, fn in fns.items():
             pre = "" if key == "kernel" else key + "_"
-            row[pre + "us"] = events_us(fn, iters=20 if key == "plain" else 50)
-            row[pre + "dev_us"] = device_us(fn)
-        row["tb_per_s"] = row["bytes"] / row["us"] / 1e6
-        row["share_of_bound"] = row["bound_us"] / row["us"]
+            row[pre + "us"] = events_ms(fn, iters=20 if key == "plain" else 50) * 1e3
+            row[pre + "dev_us"] = measured_device_ms(fn)[0] * 1e3
+        row["tb_per_s"] = row["bytes"] / row["dev_us"] / 1e6
+        row["share_of_bound"] = row["bound_us"] / row["dev_us"]
+        row["host_bound"] = host_bound(row["us"], row["dev_us"])
         rows.append(row)
         print(json.dumps({"patch_shape": row}), flush=True)
         del frames, offs, out, window, dense

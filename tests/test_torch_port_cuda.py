@@ -44,7 +44,9 @@ patch kernel once a forward (int8: also 86 ``int8_conv`` and 17
 The tooling: each ResNet variant over 4 patches of 96^2 in bf16 against
 float32 (TF32 off) within 3e-2; ``utils.profiling.trace`` around a tiny
 forward on the card, ``top_ops`` showing the patch kernel once and summing
-to the trace's device events.
+to the trace's device events; ``utils.profiling.device_ms`` of the patch
+kernel at N=512 above 0 and at most its CUDA events' time, and of one int8
+head product at M=1 host-bound (events over 1.5x its device time).
 
 The fused blocks' tolerance, max|kernel - plain| / max|plain|: 1e-4 in
 float32 (summation order only, TF32 off) and 2e-2 in bf16 (a hidden value
@@ -1072,3 +1074,41 @@ def test_cuda_profiler_attributes_the_patch_kernel(tmp_path):
     events = profiling.device_events(profiling.load_trace(str(tmp_path)))
     assert sum(r[2] for r in rows) == len(events)
     assert sum(r[1] for r in rows) == pytest.approx(sum(e["dur"] for e in events) / 1e3)
+
+
+@pytest.mark.cuda
+def test_cuda_patch_kernel_device_time_within_its_events():
+    """``profiling.device_ms`` of the patch kernel at AdaFocus+'s N=512
+    (224^2 bf16 frames, 96^2 patches): above 0 and at most what CUDA events
+    around the same back-to-back calls read, which add the host's gaps."""
+    from adafocus_torch.utils import profiling
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(38)
+    frames = torch.randn((512, 224, 224, 3), generator=gen).to("cuda", torch.bfloat16)
+    offs = torch.randint(0, 224 - 96 + 1, (512, 2), generator=gen, dtype=torch.int32).cuda()
+    before = tpatch.extract_patches.launches
+    fn = lambda: tpatch.extract_patches(frames, offs, 96)   # noqa: E731
+    events = profiling.events_ms(fn, iters=50, warmup=5)
+    device = profiling.device_ms(fn, iters=20)
+    assert tpatch.extract_patches.launches == before + 5 + 50 + 1 + 20
+    assert device is not None and 0 < device <= events
+
+
+@pytest.mark.cuda
+def test_cuda_int8_head_launch_is_host_bound():
+    """One int8 head product at M=1 (the policy GRU's input, K=3328,
+    N=3072): its device time is well under its events time, the launch
+    path's host cost (``profiling.host_bound``, 1.5x)."""
+    from adafocus_torch.ops import quant as tq
+    from adafocus_torch.utils import profiling
+
+    _needs_gpu()
+    gen = torch.Generator().manual_seed(39)
+    unit = _int8_unit(3072, 3328, 0, gen)
+    x = torch.randint(-127, 128, (1, 3328), generator=gen, dtype=torch.int8).cuda()
+    fn = lambda: tq.int8_dense(x, unit, None, torch.float32)   # noqa: E731
+    events = profiling.events_ms(fn, iters=50, warmup=5)
+    device = profiling.device_ms(fn, iters=20)
+    assert device is not None and device > 0
+    assert profiling.host_bound(events, device), (events, device)

@@ -99,8 +99,10 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
 
 def _port_files():
     return sorted((ROOT / "adafocus_torch").rglob("*.py")) + [
-        ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_miniact.py",
-                                  "port_patch_times.py", "port_videos_per_s.py",
+        ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_build_times.py",
+                                  "port_miniact.py",
+                                  "port_patch_times.py", "port_smoke_lines.py",
+                                  "port_videos_per_s.py",
                                   "tests/torch_port_parallel_workers.py")]
 
 
@@ -118,7 +120,8 @@ def test_port_imports_no_jax():
                 "adafocus_torch/parallel/mesh.py", "adafocus_torch/parallel/dryrun.py",
                 "adafocus_torch/utils/torch_weights.py", "adafocus_torch/utils/profiling.py",
                 "adafocus_torch/utils/device_lock.py", "adafocus_torch/ops/flops.py",
-                "tests/torch_port_parallel_workers.py", "port_miniact.py"):
+                "tests/torch_port_parallel_workers.py", "port_miniact.py",
+                "port_smoke_lines.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

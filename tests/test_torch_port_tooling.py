@@ -9,6 +9,14 @@ attribution (adafocus_torch/utils/profiling.py), the FLOP counter
   runtime calls and annotations and the device's annotation lane skipped);
   ``trace()`` around a CPU function writes a file that ``_find_trace_file``
   finds; ``StepTimer`` counts.
+- The device-time helper: ``device_ms`` and ``per_call_ms`` give None on
+  the CPU's profiler events (host operators only), live (``as_trace_events``)
+  or written; ``per_call_ms`` sums the kernel spans of a trace of N calls
+  and divides by N, the host's lanes, the annotations and the gaps left
+  out, and gives None where spans went missing (a name's count that is not
+  a multiple of N, or not N times its count in a one-call profile);
+  ``host_bound`` is True exactly where events exceed the
+  device time by more than 1.5x.
 - ``flops`` of a batched matmul equals JAX's ``xla_flops``, 2·B·M·N·K; on the
   tiny GFV forward its ratio to JAX's count is the one ``ops/flops.py``
   states, within 10%.
@@ -132,6 +140,118 @@ def test_step_timer():
     t.step_done()
     assert t.count == 2 and t.step_time >= 0 and t.data_time >= 0
     assert "ms/step" in t.summary()
+
+
+def test_device_time_of_cpu_profiler_events_is_none(tmp_path):
+    """On the CPU the profiler records host operators only: no device time,
+    from a live profile (``as_trace_events``) or from its written trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a = torch.randn(32, 32)
+    assert tprof.device_ms(lambda: a @ a, iters=3) is None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            a @ a
+    live = tprof.as_trace_events(prof.events())
+    assert [e["name"] for e in live].count("aten::mm") == 3
+    assert {e["cat"] for e in live} == {"cpu_op"} and tprof.per_call_ms(live, 3) is None
+    with tprof.trace(str(tmp_path), "cpu.json"):
+        for _ in range(3):
+            a @ a
+    events = tprof.load_trace(str(tmp_path / "cpu.json"))
+    assert any(e.get("name") == "aten::mm" for e in events)
+    assert tprof.per_call_ms(events, 3) is None
+
+
+def _calls_trace(calls: int, kernel_us, launch_us: float, names=None) -> list:
+    """A trace of ``calls`` calls: each an operator whose runtime launches,
+    ``launch_us`` apart, start one kernel of each duration of ``kernel_us``
+    on the device (named by ``names``, default all ``conv_kernel``), and an
+    annotation range over the call on both lanes."""
+    host, dev, events, corr = 4242, 0, [], 0
+    for c in range(calls):
+        t0 = c * 1000
+        events.append(_event("user_annotation", "call", t0, 900, pid=host, tid=1))
+        events.append(_event("gpu_user_annotation", "call", t0 + 5, 800, pid=dev))
+        events.append(_event("cpu_op", "adafocus_torch::int8_conv", t0 + 1, 800, pid=host,
+                             tid=1))
+        for i, dur in enumerate(kernel_us):
+            corr += 1
+            ts = t0 + 10 + i * launch_us
+            events.append(_event("cuda_runtime", "cudaLaunchKernel", ts, 3, pid=host, tid=1,
+                                 correlation=corr))
+            events.append(_event("kernel", names[i] if names else "conv_kernel", ts + 4,
+                                 dur, pid=dev, correlation=corr))
+    return events
+
+
+@pytest.mark.parametrize("calls,kernel_us", [(1, (7.5,)), (20, (2.25,)), (3, (40.0, 1.5))],
+                         ids=["one", "many", "split_k"])
+def test_per_call_ms_sums_the_kernel_spans_a_call(calls, kernel_us):
+    """The device's spans (kernels, copies, memsets) summed and divided by
+    the calls, in ms; the host's operators, launches and annotations and the
+    device's annotation lane left out, as are the gaps between spans."""
+    events = _calls_trace(calls, kernel_us, launch_us=100.0)
+    assert tprof.per_call_ms(events, calls) == pytest.approx(sum(kernel_us) / 1e3)
+    # the hand-written trace: kernels 48.5 + 51.5 + 90 + 250, a copy 20, a memset 2 (us),
+    # one call's; its names' counts (2, 1, 1, 1, 1) are no two or three calls' alike
+    assert tprof.per_call_ms(_hand_trace()["traceEvents"], 1) == pytest.approx(0.462)
+    assert tprof.per_call_ms(_hand_trace()["traceEvents"], 2) is None
+    assert tprof.per_call_ms(_hand_trace()["traceEvents"], 3) is None
+
+
+def test_per_call_ms_refuses_a_trace_that_lost_spans():
+    """A profile that kept some calls' spans and lost others' (the device's
+    timestamps past the host's capture window) is no measurement: None,
+    where a plain sum would read a shorter call."""
+    events = _calls_trace(20, (1330.0,), launch_us=100.0)
+    kernels = [i for i, e in enumerate(events) if e["cat"] == "kernel"]
+    assert tprof.per_call_ms(events, 20) == pytest.approx(1.33)
+    late_lost = [e for i, e in enumerate(events) if i not in kernels[-7:]]
+    assert tprof.per_call_ms(late_lost, 20) is None
+    two_a_call = _calls_trace(4, (40.0, 1.5), launch_us=100.0)
+    one_lost = [e for e in two_a_call if not (e["cat"] == "kernel" and e["dur"] == 1.5
+                                              and e["ts"] > 3000)]
+    assert tprof.per_call_ms(one_lost, 4) is None
+
+
+def _last_calls_lost(calls: int, lost: int, names) -> list:
+    """A trace of ``calls`` calls of two kernels (40 and 1.5 us, named by
+    ``names``) whose last ``lost`` calls' device spans went missing."""
+    events = _calls_trace(calls, (40.0, 1.5), launch_us=100.0, names=names)
+    return [e for e in events if not (e["cat"] == "kernel" and e["ts"] >= (calls - lost) * 1000)]
+
+
+@pytest.mark.parametrize("names", [("conv_kernel", "splitk_finish"), ("conv_kernel",) * 2],
+                         ids=["two_names", "one_name"])
+def test_per_call_ms_refuses_whole_calls_lost(names):
+    """Two spans a call, the last half of the calls lost: a span count that
+    is still a multiple of the calls. Refused where the two kernels differ
+    by name (each name's count is no multiple), and, where they share one,
+    against a one-call profile (``reference``): its count a call times the
+    calls. The whole trace is accepted against the same reference."""
+    calls = 20
+    reference = _calls_trace(1, (40.0, 1.5), launch_us=100.0, names=names)
+    whole = _calls_trace(calls, (40.0, 1.5), launch_us=100.0, names=names)
+    lost = _last_calls_lost(calls, calls // 2, names)
+    assert len(tprof.device_events(lost)) == calls
+    assert tprof.per_call_ms(whole, calls, reference) == pytest.approx(0.0415)
+    assert tprof.per_call_ms(lost, calls, reference) is None
+    if names[0] != names[1]:
+        assert tprof.per_call_ms(lost, calls) is None
+    else:   # without the reference, indistinguishable from one span a call
+        assert tprof.per_call_ms(lost, calls) == pytest.approx(0.0415 / 2)
+    other = _calls_trace(1, (40.0,), launch_us=100.0, names=("dw_kernel",))
+    assert tprof.per_call_ms(whole, calls, other) is None
+
+
+@pytest.mark.parametrize("events,device,want", [
+    (0.0669, 0.0257, True), (0.75, 0.5, False), (0.7501, 0.5, True), (3.977, 0.5, True),
+    (22.6, 22.4, False), (0.1, None, None)],
+    ids=["patch_n512", "at_1.5x", "above_1.5x", "int8_heads", "fused_blocks", "unmeasured"])
+def test_host_bound_follows_the_1_5x_rule(events, device, want):
+    assert tprof.HOST_BOUND_RATIO == 1.5
+    assert tprof.host_bound(events, device) is want
 
 
 # ---------------------------------------------------------------------------
