@@ -26,7 +26,7 @@ from adafocus_tpu.models.gfv import GFV
 from adafocus_tpu.ops.patch import random_patch_actions
 from adafocus_tpu.train.stages import TrainState, make_stage_train_step
 from tests.torch_port_common import (
-    TRAIN_B, TRAIN_CFG, jax_variables, port_config, state_dict_from_jax, train_batch,
+    TRAIN_B, TRAIN_CFG, abstract_variables, port_config, state_dict_from_jax, train_batch,
 )
 
 SEED = 5
@@ -58,7 +58,7 @@ def _flat(leaves):
 def gradients():
     """{package: {dtype: {component: flat float64 gradient}}} of one
     stage-1 step."""
-    _, variables = jax_variables(TRAIN_CFG, seed=SEED)
+    _, variables = abstract_variables(TRAIN_CFG, seed=SEED)
     jbatch, tbatch = train_batch(TRAIN_CFG, TRAIN_B, SEED + 1)
     rng = jax.random.key(SEED)
     a_key, _ = jax.random.split(rng)

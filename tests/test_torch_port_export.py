@@ -78,15 +78,30 @@ def _inputs(cfg, seed):
             flat.reshape((B, tf) + flat.shape[1:]))
 
 
+@pytest.fixture(scope="module")
+def exported():
+    """family -> (flax GFV, variables, the port's model, its exported
+    program), each family exported once a module (an export takes seconds)."""
+    done = {}
+
+    def get(family):
+        if family not in done:
+            jmodel, variables = abstract_variables(FAMILIES[family], seed=5)
+            model = port_model(FAMILIES[family], variables)
+            done[family] = (jmodel, variables, model, tserving.export_inference(model, B))
+        return done[family]
+
+    return get
+
+
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_export_matches_eager_and_jax(family, scratch_path):
+def test_export_matches_eager_and_jax(family, exported, scratch_path):
     cfg = FAMILIES[family]
-    jmodel, variables = abstract_variables(cfg, seed=5)
-    model = port_model(cfg, variables)
+    jmodel, variables, model, program = exported(family)
     frames, small, flat = _inputs(cfg, seed=6)
 
     path = str(scratch_path / "port.pt2")
-    tserving.save_exported(tserving.export_inference(model, B), path)
+    tserving.save_exported(program, path)
     got = tserving.load_exported(path)(frames, small)
     want = inference_fn(model)(frames, small)
     assert got.shape == want.shape
@@ -98,13 +113,13 @@ def test_export_matches_eager_and_jax(family, scratch_path):
     np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=1e-3, rtol=1e-3)
 
 
-def test_state_is_what_the_forward_reads():
+def test_state_is_what_the_forward_reads(exported):
     """The program's state holds the tensors the forward reads: the glancer's
     and the focuser's stage-0 classifiers, which the deployment forward
     never runs, are no part of it; every tensor it holds is one of the
     model's."""
-    model = port_model(TINY, abstract_variables(TINY, seed=5)[1])
-    state = tserving.export_inference(model, B).state_dict
+    _, _, model, program = exported("actnet")
+    state = program.state_dict
     names = {n.replace(".", "_") for n in model.state_dict()}
     assert {n.removeprefix("model_") for n in state} <= names
     for skipped in ("glancer.classifier.weight", "focuser.fc.weight"):
@@ -142,10 +157,10 @@ def test_custom_ops_opcheck(op):
     torch.library.opcheck(fn, args)
 
 
-def test_fresh_process_loads_without_model_code(scratch_path):
-    model = port_model(TINY, abstract_variables(TINY, seed=5)[1])
+def test_fresh_process_loads_without_model_code(exported, scratch_path):
+    _, _, model, program = exported("actnet")
     path = str(scratch_path / "port.pt2")
-    tserving.save_exported(tserving.export_inference(model, B), path)
+    tserving.save_exported(program, path)
     frames, small, _ = _inputs(TINY, seed=8)
     torch.save({"frames": frames, "frames_small": small}, scratch_path / "inputs.pt")
     want = inference_fn(model)(frames, small)

@@ -63,14 +63,29 @@ def _model_and_scales(cfg, heads: bool, seed: int = 9):
     return model, tqi.calibrate_gfv(model, [batch], heads=heads)
 
 
+@pytest.fixture(scope="module")
+def exported_q8():
+    """(family, heads) -> (model, scales, the int8 exported program), each
+    exported once a module (an export takes seconds)."""
+    done = {}
+
+    def get(family, heads):
+        if (family, heads) not in done:
+            model, scales = _model_and_scales(FAMILIES[family], heads)
+            done[family, heads] = (model, scales, tserving.export_inference(
+                model, B, mode="int8", scales=scales))
+        return done[family, heads]
+
+    return get
+
+
 @pytest.mark.parametrize("heads", [False, True], ids=["int8", "int8+heads"])
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_export_int8_matches_eager(family, heads, scratch_path):
+def test_export_int8_matches_eager(family, heads, exported_q8, scratch_path):
     cfg = FAMILIES[family]
-    model, scales = _model_and_scales(cfg, heads)
+    model, scales, program = exported_q8(family, heads)
     path = str(scratch_path / "q8.pt2")
-    tserving.save_exported(tserving.export_inference(model, B, mode="int8", scales=scales),
-                           path)
+    tserving.save_exported(program, path)
     data = make_data(cfg, B, device="cpu", seed=11)
     got = tserving.load_exported(path)(data["frames"], data["frames_small"])
     qw = tqi.prepare_q8(model, scales)
@@ -80,11 +95,10 @@ def test_export_int8_matches_eager(family, heads, scratch_path):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-5)
 
 
-def test_int8_artifact_carries_no_float_conv_weights(scratch_path):
+def test_int8_artifact_carries_no_float_conv_weights(exported_q8, scratch_path):
     """Smaller than the bf16 artifact of the same model; none of the float
     conv weights of a unit it runs in int8 is in its state, the stems' are."""
-    model, scales = _model_and_scales(TINY, heads=False)
-    ep8 = tserving.export_inference(model, B, mode="int8", scales=scales)
+    model, _, ep8 = exported_q8("actnet", False)
     for name in ("model_glancer_block_1_0_expand_conv_weight",
                  "model_focuser_layer1_0_conv2_conv_weight"):
         assert name not in ep8.state_dict

@@ -17,6 +17,8 @@ tests/test_torch_port_cuda.py (where a GPU is visible) and by chip_smoke.py
 at every block shape of the flagship.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +38,7 @@ from adafocus_tpu.models.gfv import GFV, inference
 from adafocus_tpu.ops import fused_blocks as jfb
 from adafocus_tpu.ops.patch import pad_for_extraction
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
-from tests.torch_port_common import TINY, jax_variables, port_model, randomize_bn
+from tests.torch_port_common import TINY, abstract_variables, port_model, randomize_bn
 
 BLOCK_TOL = dict(atol=2e-5, rtol=1e-5)
 BACKBONE_TOL = dict(atol=5e-4, rtol=1e-4)
@@ -124,8 +126,9 @@ def test_bottleneck_matches_jax(stride, downsample, size, use_res):
 def test_mobilenet_features_fused_matches_jax():
     x = np.random.RandomState(4).randn(2, 32, 32, 3).astype(np.float32)
     module = jmob.MobileNetV2(num_classes=10)
-    vs = randomize_bn(module.init(jax.random.key(0), jnp.asarray(x)), seed=4)
-    want_map, want_pool = jfi.mobilenet_features_fused(vs, jnp.asarray(x), interpret=True)
+    vs = randomize_bn(jax.jit(module.init)(jax.random.key(0), jnp.asarray(x)), seed=4)
+    want_map, want_pool = jax.jit(partial(jfi.mobilenet_features_fused, interpret=True))(
+        vs, jnp.asarray(x))
     glancer = _load(tmob.MobileNetV2(num_classes=10), vs)
     got_map, got_pool = tfi.mobilenet_features_fused(glancer, torch.from_numpy(x))
     _close(got_map, want_map, BACKBONE_TOL)
@@ -138,8 +141,9 @@ def test_mobilenet_features_fused_matches_jax():
 def test_resnet_features_fused_matches_jax():
     x = np.random.RandomState(5).randn(2, 32, 32, 3).astype(np.float32)
     module = jres.resnet50(num_classes=10)
-    vs = randomize_bn(module.init(jax.random.key(0), jnp.asarray(x)), seed=5)
-    want_map, want_pool = jfi.resnet_features_fused(vs, jnp.asarray(x), interpret=True)
+    vs = randomize_bn(jax.jit(module.init)(jax.random.key(0), jnp.asarray(x)), seed=5)
+    want_map, want_pool = jax.jit(partial(jfi.resnet_features_fused, interpret=True))(
+        vs, jnp.asarray(x))
     focuser = _load(tres.resnet50(num_classes=10), vs)
     got_map, got_pool = tfi.resnet_features_fused(focuser, torch.from_numpy(x))
     _close(got_map, want_map, BACKBONE_TOL)
@@ -152,7 +156,7 @@ def test_resnet_features_fused_matches_jax():
 def test_inference_fused_matches_jax(monkeypatch):
     monkeypatch.setattr(jfb, "INTERPRET_DEFAULT", True)
     cfg, b = TINY, 2
-    jmodel, variables = jax_variables(cfg, seed=1)
+    jmodel, variables = abstract_variables(cfg, seed=1)
     model = port_model(cfg, variables)
     rs = np.random.RandomState(2)
     t, s, g = cfg.num_frames, cfg.image_size, cfg.glance_size
@@ -162,20 +166,27 @@ def test_inference_fused_matches_jax(monkeypatch):
     flat = flat.reshape((b, t) + flat.shape[1:])
     rng = jax.random.key(0)
 
-    fmap, _ = jfi.fused_glance(jmodel, variables, jnp.asarray(small))
-    _, actor_logits, _ = jmodel.apply(
-        variables, jnp.swapaxes(fmap, 0, 1),
-        method=lambda m, v: m.policy.rollout_states(v))
+    # JAX's phases each under one jit: eagerly each op compiles at each shape
+    @jax.jit
+    def glance_and_roll(variables, small, rng):
+        fmap, _ = jfi.fused_glance(jmodel, variables, small)
+        _, actor_logits, _ = jmodel.apply(
+            variables, jnp.swapaxes(fmap, 0, 1),
+            method=lambda m, v: m.policy.rollout_states(v))
+        return actor_logits, jmodel.apply(variables, fmap, rng, "greedy", False,
+                                          method=GFV.policy_rollout)
+
+    actor_logits, roll = glance_and_roll(variables, jnp.asarray(small), rng)
     top2 = np.sort(np.asarray(actor_logits), axis=-1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() > 1e-3   # no argmax near-tie
-    roll = jmodel.apply(variables, fmap, rng, "greedy", False, method=GFV.policy_rollout)
     with torch.inference_mode():
         got_fmap, _ = tfi.fused_glance(model, torch.from_numpy(small))
         got_roll = model.policy_rollout(got_fmap)
     np.testing.assert_array_equal(got_roll["action_idx"].numpy(),
                                   np.asarray(roll["action_idx"]))
 
-    want = inference(jmodel, variables, flat, jnp.asarray(small), rng, fused="on")
+    want = jax.jit(partial(inference, jmodel, fused="on"))(variables, flat, jnp.asarray(small),
+                                                           rng)
     got = tgfv.inference(model, frames, small, device="cpu", fused="on")
     assert got.shape == (b, t, cfg.num_classes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=SLICE_TOL,

@@ -17,6 +17,7 @@ import ast
 import pathlib
 import subprocess
 import sys
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ from adafocus_tpu.models.gfv import GFV, glance_policy_actions, inference
 from adafocus_tpu.models.gfv import inference_with_actions
 from adafocus_tpu.ops.patch import pad_for_extraction
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
-from tests.torch_port_common import FLAGSHIP_WIDTH, TINY, jax_variables, port_model
+from tests.torch_port_common import FLAGSHIP_WIDTH, TINY, abstract_variables, port_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOL = 1e-3
@@ -48,15 +49,20 @@ def _inputs(cfg, b, seed):
 @pytest.mark.parametrize("cfg,b", [(TINY, 2), (FLAGSHIP_WIDTH, 1)],
                          ids=["tiny", "flagship_width"])
 def test_inference_matches_jax(cfg, b):
-    jmodel, variables = jax_variables(cfg, seed=1)
+    jmodel, variables = abstract_variables(cfg, seed=1)
     model = port_model(cfg, variables)
     frames, small, flat = _inputs(cfg, b, seed=2)
     rng = jax.random.key(0)
 
-    fmap, _, roll = glance_policy_actions(jmodel, variables, jnp.asarray(small), rng)
-    _, actor_logits, _ = jmodel.apply(
-        variables, jnp.swapaxes(fmap, 0, 1),
-        method=lambda m, x: m.policy.rollout_states(x))
+    @jax.jit     # one program, where eagerly each op compiles at each shape
+    def glance(variables, small, rng):
+        fmap, _, roll = glance_policy_actions(jmodel, variables, small, rng)
+        _, actor_logits, _ = jmodel.apply(
+            variables, jnp.swapaxes(fmap, 0, 1),
+            method=lambda m, x: m.policy.rollout_states(x))
+        return actor_logits, roll
+
+    actor_logits, roll = glance(variables, jnp.asarray(small), rng)
     top2 = np.sort(np.asarray(actor_logits), axis=-1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() > 1e-3
 
@@ -67,15 +73,15 @@ def test_inference_matches_jax(cfg, b):
     np.testing.assert_array_equal(got_roll["actions"].numpy(),
                                   np.asarray(roll["actions"]))
 
-    want = inference(jmodel, variables, flat, jnp.asarray(small), rng)
+    want = jax.jit(partial(inference, jmodel))(variables, flat, jnp.asarray(small), rng)
     got = tgfv.inference(model, frames, small, device="cpu")
     assert got.shape == (b, cfg.num_frames, cfg.num_classes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=TOL)
 
     acts = np.random.RandomState(3).uniform(0, 1, (b, cfg.num_frames, 2))
     acts = acts.astype(np.float32)
-    want_a = inference_with_actions(jmodel, variables, flat, jnp.asarray(small),
-                                    jnp.asarray(acts))
+    want_a = jax.jit(partial(inference_with_actions, jmodel))(
+        variables, flat, jnp.asarray(small), jnp.asarray(acts))
     got_a = tgfv.inference_with_actions(model, frames, small, acts, device="cpu")
     np.testing.assert_allclose(got_a.numpy(), np.asarray(want_a),
                                atol=TOL, rtol=TOL)
@@ -102,6 +108,7 @@ def _port_files():
         ROOT / name for name in ("chip_smoke.py", "port_bench.py", "port_build_times.py",
                                   "port_miniact.py",
                                   "port_patch_times.py", "port_smoke_lines.py",
+                                  "port_test_times.py",
                                   "port_videos_per_s.py",
                                   "tests/torch_port_parallel_workers.py")]
 
@@ -121,7 +128,7 @@ def test_port_imports_no_jax():
                 "adafocus_torch/utils/torch_weights.py", "adafocus_torch/utils/profiling.py",
                 "adafocus_torch/utils/device_lock.py", "adafocus_torch/ops/flops.py",
                 "tests/torch_port_parallel_workers.py", "port_miniact.py",
-                "port_smoke_lines.py"):
+                "port_smoke_lines.py", "port_test_times.py"):
         assert sub in checked, sub
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -25,14 +25,14 @@ from adafocus_tpu.models.policy import ActorCritic
 from adafocus_tpu.models.resnet import resnet50
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import FLAGSHIP_WIDTH as CFG
-from tests.torch_port_common import jax_variables, port_model
+from tests.torch_port_common import abstract_variables, port_model
 
 ATOL = 1e-4
 
 
 @pytest.fixture(scope="module")
 def models():
-    _, variables = jax_variables(CFG, seed=3)
+    _, variables = abstract_variables(CFG, seed=3)
     return variables, port_model(CFG, variables)
 
 

@@ -23,6 +23,7 @@ Tolerances:
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -212,16 +213,21 @@ def test_inference_plus_matches_jax(plus_models, rl):
     rng = jax.random.key(11)
     _, a_key, _ = jax.random.split(rng, 3)
     small = jbatch["frames_small"]
-    want = jplus.inference_plus(jmodel, variables, jbatch["frames_flat"], small, rng)
-    _, aux = jplus.forward_plus(jmodel, variables, jbatch["frames_flat"], small, rng,
-                                train=False, patch_mode="policy")
-    fmap, pooled = jmodel.apply(variables, small, False, method=GFV.glance)
+    @jax.jit     # one program, where eagerly each op compiles at each shape
+    def reference(variables, flat, small, rng):
+        want = jplus.inference_plus(jmodel, variables, flat, small, rng)
+        _, aux = jplus.forward_plus(jmodel, variables, flat, small, rng,
+                                    train=False, patch_mode="policy")
+        fmap, pooled = jmodel.apply(variables, small, False, method=GFV.glance)
+        scores = None if rl else jmodel.apply(variables, pooled, method=GFV.frame_scores)
+        fsel = jplus.gather_frames(fmap, aux["frame_idx"])
+        jactions = jmodel.apply(variables, fsel, a_key, "greedy", False,
+                                method=GFV.policy_rollout)["actions"]
+        return want, aux, scores, jactions
+
+    want, aux, scores, jactions = reference(variables, jbatch["frames_flat"], small, rng)
     if not rl:
-        scores = np.asarray(jmodel.apply(variables, pooled, method=GFV.frame_scores))
-        assert _margin(scores, k) > 1e-4
-    fsel = jplus.gather_frames(fmap, aux["frame_idx"])
-    jactions = jmodel.apply(variables, fsel, a_key, "greedy", False,
-                            method=GFV.policy_rollout)["actions"]
+        assert _margin(np.asarray(scores), k) > 1e-4
     got = tplus.inference_plus(model, tbatch["frames"], tbatch["frames_small"], device="cpu")
     with torch.inference_mode():
         _, taux = tplus.forward_plus(model, tbatch["frames"], tbatch["frames_small"],
@@ -300,10 +306,12 @@ def test_mlp_state_encoder_matches_jax():
     model = port_model(cfg, variables)
     jbatch, tbatch = train_batch(cfg, B, SEED + 3)
     key = jax.random.key(0)
-    want = inference(jmodel, variables, jbatch["frames_flat"], jbatch["frames_small"], key)
+    want = jax.jit(partial(inference, jmodel))(variables, jbatch["frames_flat"],
+                                               jbatch["frames_small"], key)
     got = tgfv.inference(model, tbatch["frames"], tbatch["frames_small"], device="cpu")
-    fmap, _ = jmodel.apply(variables, jbatch["frames_small"], False, method=GFV.glance)
-    jroll = jmodel.apply(variables, fmap, key, "greedy", False, method=GFV.policy_rollout)
+    jroll = jax.jit(lambda v, small: jmodel.apply(
+        v, jmodel.apply(v, small, False, method=GFV.glance)[0], key, "greedy", False,
+        method=GFV.policy_rollout))(variables, jbatch["frames_small"])
     with torch.inference_mode():
         roll = model.policy_rollout(model.glance(tbatch["frames_small"])[0])
     np.testing.assert_array_equal(roll["action_idx"].numpy(), np.asarray(jroll["action_idx"]))

@@ -253,24 +253,30 @@ def _joint_draws(cfg, jmodel, variables, small, rng):
     (B, K), the policy's sampled anchors (K, B), the baseline's frames and
     patch actions."""
     b, t, k = B, cfg.num_frames, cfg.frame_budget
-    sel_key, spat_key, base_f_key, base_a_key = jax.random.split(rng, 4)
-    params = variables["params"]
-    fmap, pooled = jmodel.apply(variables, small, False, method=GFV.glance)
-    selector = SelectorActorCritic(hidden_dim=cfg.selector_hidden, in_dim=cfg.glance_dim,
-                                   dtype=cfg.dtype)
-    idx = selector.apply({"params": params["selector_ac"]}, pooled, k, sel_key, "sample",
-                         method=SelectorActorCritic.rollout)["idx"]
-    fmaps_tb = jnp.swapaxes(gather_frames(fmap, idx), 0, 1)
-    policy_vars = {"params": params["policy"]}
-    if "policy" in variables["batch_stats"]:
-        # a BatchNorm encoder: the behavior rollout normalizes with the
-        # batch's statistics, as the JAX step gives it the policy's stats
-        policy_vars["batch_stats"] = variables["batch_stats"]["policy"]
-    spatial = _rollout_time_major(jppo.make_policy(cfg), policy_vars, fmaps_tb, spat_key,
-                                  cfg)["store"]
+
+    @jax.jit     # one program, where eagerly each op compiles at each shape
+    def draws(variables, small, rng):
+        sel_key, spat_key, base_f_key, base_a_key = jax.random.split(rng, 4)
+        params = variables["params"]
+        fmap, pooled = jmodel.apply(variables, small, False, method=GFV.glance)
+        selector = SelectorActorCritic(hidden_dim=cfg.selector_hidden, in_dim=cfg.glance_dim,
+                                       dtype=cfg.dtype)
+        idx = selector.apply({"params": params["selector_ac"]}, pooled, k, sel_key, "sample",
+                             method=SelectorActorCritic.rollout)["idx"]
+        fmaps_tb = jnp.swapaxes(gather_frames(fmap, idx), 0, 1)
+        policy_vars = {"params": params["policy"]}
+        if "policy" in variables["batch_stats"]:
+            # a BatchNorm encoder: the behavior rollout normalizes with the
+            # batch's statistics, as the JAX step gives it the policy's stats
+            policy_vars["batch_stats"] = variables["batch_stats"]["policy"]
+        spatial = _rollout_time_major(jppo.make_policy(cfg), policy_vars, fmaps_tb, spat_key,
+                                      cfg)["store"]
+        return (idx, spatial, jax.random.randint(base_f_key, (b, k), 0, t),
+                random_patch_actions(base_a_key, (b, k)))
+
+    idx, spatial, base_idx, base_actions = draws(variables, small, rng)
     return {"select": _t(idx).long(), "spatial": _t(spatial).long(),
-            "base_idx": _t(jax.random.randint(base_f_key, (b, k), 0, t)).long(),
-            "base_actions": _t(random_patch_actions(base_a_key, (b, k)))}
+            "base_idx": _t(base_idx).long(), "base_actions": _t(base_actions)}
 
 
 @pytest.mark.parametrize("mode", ["random", "conf", "prev"])

@@ -161,7 +161,7 @@ def test_int8_conv_matches_jax(k, stride, cin, cout, groups):
         dimension_numbers=("NHWC", "HWIO", "NHWC"), feature_group_count=groups,
         preferred_element_type=jnp.int32))
     tunit = tq.QConv(torch.from_numpy(np.asarray(kq).transpose(3, 2, 0, 1).copy()),
-                     torch.from_numpy(np.asarray(ws)), torch.from_numpy(bias),
+                     torch.from_numpy(np.array(ws)), torch.from_numpy(bias),
                      torch.tensor(s_x))
     tx = torch.from_numpy(x_q)
     got_acc = tq.int8_conv(tx, tunit, stride, groups, out_dtype=torch.int32).numpy()
@@ -186,7 +186,7 @@ def test_int8_dense_matches_jax(m):
     bias = rs.randn(24).astype(np.float32)
     unit = jq.QConv(kq, ws, jnp.asarray(bias), jnp.float32(0.5))
     want = np.asarray(jax.jit(lambda a: jq.int8_dense(a, unit))(jnp.asarray(x_q)))
-    tunit = tq.QConv(torch.from_numpy(np.asarray(kq).T.copy()), torch.from_numpy(np.asarray(ws)),
+    tunit = tq.QConv(torch.from_numpy(np.asarray(kq).T.copy()), torch.from_numpy(np.array(ws)),
                      torch.from_numpy(bias), torch.tensor(np.float32(0.5)))
     acc = np.asarray(jnp.dot(jnp.asarray(x_q), kq, preferred_element_type=jnp.int32))
     np.testing.assert_array_equal(
@@ -230,6 +230,15 @@ class Family:
         flat = pad_for_extraction(jnp.asarray(self.frames.reshape((-1, s, s, 3))))
         self.jflat_q = jq.quantize_frames(flat.reshape((b, tf) + flat.shape[1:]))
         self.jsmall_q = jq.quantize_frames(jnp.asarray(self.small))
+        self._jax_qw = None
+
+    def jax_qw(self, heads: bool) -> dict:
+        """JAX's prepared weights, ``jax_cache`` under one ``jax.jit`` once
+        a family: mode int8's are int8+heads' without the heads'. A float64
+        family's caller holds ``jax.enable_x64``."""
+        if self._jax_qw is None:
+            self._jax_qw = jax.jit(jax_cache)(self.variables, self.jscales)
+        return self._jax_qw if heads else {**self._jax_qw, "heads": {}}
 
     def scales(self, heads: bool):
         """JAX's scales carried across, without the heads' for mode int8."""
@@ -322,11 +331,13 @@ def test_backbone_q8_matches_jax(actnet, kind, monkeypatch):
 
 def jax_cache(v, scales) -> dict:
     """JAX's prepared-weight cache for flax variables ``v`` and scales
-    ``scales`` (with 'heads' for int8+heads), each entry made eagerly by
-    JAX's own code as its ``prepare_q8`` makes it (``fold_bn`` and
+    ``scales`` (with 'heads' for int8+heads), each entry made by JAX's own
+    code as its ``prepare_q8`` makes it (``fold_bn`` and
     ``quantize_weight`` a backbone unit, ``_HeadRunner._qweight`` a head),
     without the batch-1 forward that drives it there (eager, about a minute
-    a family here)."""
+    a family here). Eagerly it compiles each op at each shape (~400
+    programs); where the cache only feeds both packages' forwards it runs
+    under one ``jax.jit`` (``Family.jax_qw``)."""
     qw = {"glancer": {}, "focuser": {}, "heads": {}}
     for group in ("glancer", "focuser"):
         tree = _merge_bn(v["params"][group], v["batch_stats"].get(group, {}))
@@ -363,7 +374,9 @@ def jax_cache(v, scales) -> dict:
                         "glancer/fc": (p["glancer"]["classifier"]["kernel"], "glancer/fc")})
     runner = jqi._HeadRunner(scales["heads"], qw["heads"])
     for name, (kernel, point) in kernels.items():
-        runner._qweight(name, jnp.asarray(kernel), jnp.atleast_1d(scales["heads"][point]))
+        # stored here too: under ``jax.jit`` the runner keeps no traced entry
+        qw["heads"][name] = runner._qweight(name, jnp.asarray(kernel),
+                                            jnp.atleast_1d(scales["heads"][point]))
     return qw
 
 
@@ -378,7 +391,7 @@ def q8_cache_from_jax(jax_qw, own) -> dict:
     for group, entries in own.items():
         out[group] = {}
         for name, unit in entries.items():
-            leaves = [np.asarray(v) for v in jax_qw[group][name]]
+            leaves = [np.array(v) for v in jax_qw[group][name]]   # writable copies
             kq = leaves[0].transpose(3, 2, 0, 1) if leaves[0].ndim == 4 else leaves[0].T
             fields = {"kernel_q": torch.from_numpy(np.ascontiguousarray(kq)),
                       "w_scale": torch.from_numpy(leaves[1])}
@@ -403,7 +416,7 @@ def _jax_forward(fam: Family, heads: bool, monkeypatch):
     monkeypatch.setattr(jgfv, "extract_for_frames", spy)
     scales = fam.jscales if heads else {k: v for k, v in fam.jscales.items() if k != "heads"}
     forward = JAX_FORWARD[fam.name]
-    qw = jax_cache(fam.variables, scales)
+    qw = fam.jax_qw(heads)
     fn = jax.jit(lambda v, f, s: (forward(fam.jmodel, v, scales, f, s, jax.random.key(0),
                                           qw=qw), captured[-1]))
     logits, actions = fn(fam.variables, fam.jflat_q, fam.jsmall_q)

@@ -33,8 +33,8 @@ moves mAP by 4.2e-2; tests/test_torch_port_quant.py holds that forward
 in float64, where no code flips.
 
 JAX's prepared weights come from ``jax_cache`` (JAX's own fold and
-quantization, eagerly, without its ``prepare_q8``'s eager batch-1 forward,
-which takes about a minute here).
+quantization, under one ``jax.jit``, without its ``prepare_q8``'s eager
+batch-1 forward, which takes about a minute here).
 
 The port's CLI refuses ``run.eval_policy`` overrides with ``run.quantize``
 and an unknown ``run.quantize`` mode, as the JAX package's does.
@@ -134,7 +134,8 @@ def test_evaluate_clis_agree_int8(case, miniact_root, ckpt_root, monkeypatch):
 
     def jax_prepare(jmodel, jvariables, scales):
         served["scales"] = jax.tree.map(np.asarray, scales)
-        served["qw"] = jax_cache(jax.tree.map(np.asarray, jvariables), served["scales"])
+        served["qw"] = jax.jit(jax_cache)(jax.tree.map(np.asarray, jvariables),
+                                          served["scales"])
         return served["qw"]
 
     monkeypatch.setattr(jqi, "prepare_q8", jax_prepare)

@@ -6,8 +6,10 @@ checkpoint crosses to a port checkpoint through
 ``gfv_state_dict_from_flax``; both evaluate CLIs then agree with
 ``eval_policy`` center and oracle (top-1/top-5 equal, mAP within 1e-3), and
 the learned policy's logits agree within 1e-3 (float32, the tolerance of
-tests/test_torch_port_gfv.py). (A file of its own: the JAX CLI's
-initialisation and compiles take most of its minute on the CPU.)
+tests/test_torch_port_gfv.py). The JAX CLIs' ``create_train_state`` is
+``tests/torch_port_common.abstract_state`` here: the package's structure,
+values from a seed, without the jitted init's compile. (A file of its own:
+the JAX CLI's compiles take most of its minute on the CPU.)
 """
 
 import os
@@ -33,6 +35,7 @@ from adafocus_tpu.train import checkpoint as jckpt
 from tests.test_torch_port_cli import tiny_miniact
 from tests.test_torch_port_data import make_miniact
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_port_common import abstract_state, no_init
 
 TOL = 1e-3
 
@@ -52,7 +55,8 @@ def _port_checkpoint_from_jax(jdir: str, tdir: str, cfg) -> None:
     tree = jckpt.load_checkpoint(jdir, best=True) or jckpt.load_checkpoint(jdir)
     sd = gfv_state_dict_from_flax(jax.tree.map(np.asarray, tree["params"]),
                                   jax.tree.map(np.asarray, tree["batch_stats"]))
-    model = tgfv.GFV(cfg, device="cpu", param_dtype=torch.float32)
+    with no_init():
+        model = tgfv.GFV(cfg, device="cpu", param_dtype=torch.float32)
     model.load_state_dict(sd)
     meta = tree["meta"]
     tckpt.save_checkpoint(tdir, TrainState(model, None, None), int(meta["epoch"]),
@@ -77,14 +81,16 @@ def _stage1_checkpoints(miniact_root: str, out: str):
     # as the run the harness makes in a process of its own sees
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "device_count", lambda *a: 1)
+        mp.setattr(jtrain, "create_train_state", abstract_state)
         jtrain.main(args)
     _port_checkpoint_from_jax(jdir, tdir, tconfig.load_config(None, args).model)
     return jdir, tdir
 
 
 @pytest.mark.parametrize("policy", ["center", "oracle"])
-def test_evaluate_clis_agree(jax_stage1, miniact_root, policy, tmp_path):
+def test_evaluate_clis_agree(jax_stage1, miniact_root, policy, tmp_path, monkeypatch):
     jdir, tdir = jax_stage1
+    monkeypatch.setattr(jevaluate, "create_train_state", abstract_state)
     args = tiny_miniact(miniact_root) + [
         f"run.eval_policy={policy}", f"run.oracle_gt={miniact_root}/gt.npz"]
     want = jevaluate.main(args + [f"run.resume={jdir}", f"run.ckpt_dir={tmp_path / 'j'}"])

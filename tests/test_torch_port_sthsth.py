@@ -25,6 +25,7 @@ chip_smoke.py.
 """
 
 import dataclasses
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +51,7 @@ from adafocus_tpu.models.tsm import temporal_shift as j_shift
 from adafocus_tpu.ops import fused_blocks as jfb
 from adafocus_tpu.ops.patch import pad_for_extraction, patch_offsets
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
-from tests.torch_port_common import jax_variables, port_model, randomize_bn
+from tests.torch_port_common import abstract_variables, no_init, port_model, randomize_bn
 
 BACKBONE_TOL = dict(atol=5e-4, rtol=1e-4)
 ACTION_TOL = 1e-5
@@ -86,7 +87,7 @@ def test_temporal_shift_matches_jax(n_frames):
 def sthsth_pair():
     """The JAX GFV at STH, its variables (BatchNorm random) and the port's
     GFV loaded with them."""
-    jmodel, variables = jax_variables(STH, seed=1)
+    jmodel, variables = abstract_variables(STH, seed=1)
     return jmodel, variables, port_model(STH, variables)
 
 
@@ -106,8 +107,7 @@ BACKBONES = {
 def tsm_backbone(request, sthsth_pair):
     """(name, flax module, its variables (STH's glancer or focuser), the
     port's module with the same weights, input: clips of 2 frames at 16^2,
-    as many frames as the STH forward at B=2 gives the backbone, so that
-    JAX's per-op compiles are shared with the forward's tests)."""
+    as many frames as the STH forward at B=2 gives the backbone)."""
     make_flax, make_port = BACKBONES[request.param][:2]
     variables = sthsth_pair[1]
     vs = {k: variables[k][request.param] for k in ("params", "batch_stats")}
@@ -121,7 +121,8 @@ def tsm_backbone(request, sthsth_pair):
 def test_tsm_backbone_matches_flax(tsm_backbone):
     _, module, vs, port, x = tsm_backbone
     with jax.default_matmul_precision("highest"):
-        want_map, want_pool = module.apply(vs, jnp.asarray(x), method=module.features)
+        want_map, want_pool = jax.jit(partial(module.apply, method=module.features))(
+            vs, jnp.asarray(x))
     with torch.no_grad():
         got_map, got_pool = port.features(torch.from_numpy(x).permute(0, 3, 1, 2))
     _close(got_map.permute(0, 2, 3, 1), want_map, BACKBONE_TOL)
@@ -131,7 +132,8 @@ def test_tsm_backbone_matches_flax(tsm_backbone):
 def test_fused_tsm_backbone_matches_jax(tsm_backbone):
     name, _, vs, port, x = tsm_backbone
     jax_fused, port_fused = BACKBONES[name][2:]
-    want_map, want_pool = jax_fused(vs, jnp.asarray(x), n_frames=2, interpret=True)
+    want_map, want_pool = jax.jit(partial(jax_fused, n_frames=2, interpret=True))(
+        vs, jnp.asarray(x))
     got_map, got_pool = port_fused(port, torch.from_numpy(x), n_frames=2)
     _close(got_map, want_map, BACKBONE_TOL)
     _close(got_pool, want_pool, BACKBONE_TOL)
@@ -150,9 +152,11 @@ def _inputs(cfg, b, seed):
 
 
 def _jax_rollout(jmodel, variables, small):
-    """JAX's greedy division rollout (actions (B, D, 2))."""
-    return jsth.glance_division_rollout(jmodel, variables, jnp.asarray(small),
-                                        jax.random.key(0))[2]
+    """JAX's greedy division rollout (actions (B, D, 2)), under one jit:
+    eagerly each op compiles at each shape."""
+    rollout = jax.jit(lambda v, s: jsth.glance_division_rollout(jmodel, v, s,
+                                                                jax.random.key(0))[2])
+    return rollout(variables, jnp.asarray(small))
 
 
 def _assert_off_floor_ties(actions, cfg):
@@ -203,7 +207,8 @@ def test_inference_sthsth_matches_jax(sthsth_pair, monkeypatch, fused, with_glan
     if not with_glancer:
         cfg = dataclasses.replace(STH, with_glancer=False)
         jmodel = GFV(cfg)
-        model = tgfv.GFV(dataclasses.replace(model.cfg, with_glancer=False), device="cpu")
+        with no_init():
+            model = tgfv.GFV(dataclasses.replace(model.cfg, with_glancer=False), device="cpu")
         model.load_state_dict(sthsth_pair[2].state_dict())
     b = 2
     frames, small, flat = _inputs(STH, b, seed=2)
@@ -221,8 +226,8 @@ def test_inference_sthsth_matches_jax(sthsth_pair, monkeypatch, fused, with_glan
         tpatch.patch_offsets(got_roll["actions"], *span).numpy(),
         np.asarray(patch_offsets(want_roll["actions"], *span)))
 
-    want = jsth.inference_sthsth(jmodel, variables, flat, jnp.asarray(small),
-                                 jax.random.key(0), fused=fused)
+    want = jax.jit(partial(jsth.inference_sthsth, jmodel, fused=fused))(
+        variables, flat, jnp.asarray(small), jax.random.key(0))
     got = tsth.inference_sthsth(model, frames, small, device="cpu", fused=fused)
     assert got.shape == (b, STH.num_classes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=SLICE_TOL, rtol=SLICE_TOL)

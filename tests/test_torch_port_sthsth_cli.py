@@ -7,7 +7,8 @@ the family's overrides (``run.family=sthsth``: TSM backbones, 4 glance and
 6 focuser frames a clip, two video divisions, the consensus head, the TSN
 optimizer groups) through each package's ``cli.train.main``, in-process, as
 tests/test_torch_port_train_cli.py runs the ActivityNet family's. The port
-starts from JAX's initial weights and replays JAX's draws of each batch's
+starts from the JAX run's initial weights
+(``tests/torch_port_common.abstract_state``) and replays JAX's draws of each batch's
 key: both streams' augmentation (the glancer's from the key's first half,
 the focuser's from its second), the step's random patch actions, and the
 head's dropout mask (drawn on both sides from the key, folded with a
@@ -54,12 +55,12 @@ from adafocus_tpu.cli import common as jcommon
 from adafocus_tpu.cli import train as jtrain
 from adafocus_tpu.ops.patch import random_patch_actions
 from adafocus_tpu.train import checkpoint as jckpt
-from adafocus_tpu.train import stages as jstages
 from adafocus_tpu.train.optim import lr_schedule
 from tests.test_torch_port_cli import tiny_miniact
 from tests.test_torch_port_data import ATOL, jax_draws, make_miniact
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_train import _dropout_interceptor
+from tests.torch_port_common import abstract_state, no_init
 from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 
 BATCH = 24
@@ -89,7 +90,8 @@ def _keep_of(key, b: int, tf: int, rate: float):
 
 
 class _JaxRun:
-    """Wraps the JAX CLI's ``create_train_state`` (float64 parameters, the
+    """Wraps the JAX CLI's ``create_train_state`` (float64 parameters from
+    ``abstract_state``, nothing compiled but the optimizer's init; the
     initial variables kept as numpy), its training batch prep (each batch's
     raw streams, prepared frames, and the draws of its key, kept in order)
     and its steps (the train step's dropout mask from the key)."""
@@ -100,13 +102,10 @@ class _JaxRun:
         self.raw, self.frames, self.small, self.draws, self.actions, self.keep = (
             [], [], [], [], [], [])
 
-    def create_train_state(self, *args, **kwargs):
-        state = jstages.create_train_state(*args, **kwargs)
-        params, stats = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
-                                     (state.params, state.batch_stats))
-        self.variables = jax.tree.map(np.asarray, (params, stats))
-        return state.replace(params=params, batch_stats=stats,
-                             opt_state=kwargs["tx"].init(params))
+    def create_train_state(self, model, rng, tx=None, ppo_cfg=None):
+        state = abstract_state(model, rng, tx, ppo_cfg)
+        self.variables = jax.tree.map(np.asarray, (state.params, state.batch_stats))
+        return state
 
     def make_batch_prep(self, cfg, train):
         prep = jcommon.make_batch_prep(cfg, train)
@@ -159,7 +158,8 @@ def runs(miniact_root):
     build_steps = ttrain.build_steps
 
     def create_train_state(cfg, stage, optim, device=None, generator=None, ppo=None):
-        model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
+        with no_init():
+            model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
         model.load_state_dict(gfv_state_dict_from_flax(*seen.variables, dtype=torch.float64))
         return TrainState(model, *toptim.make_stage_optimizer(
             model, optimizer_stage(cfg, stage), optim, partial_bn=cfg.partial_bn))

@@ -4,7 +4,9 @@ package's, on the CPU.
 The JAX train CLI runs the family's stage 1 (one epoch) on the tiny miniact
 set in float32 with the overrides of tests/test_torch_port_sthsth_cli.py
 (the continuous BatchNorm-encoder policy among them); its checkpoint
-crosses to a port checkpoint through ``gfv_state_dict_from_flax``. Both
+crosses to a port checkpoint through ``gfv_state_dict_from_flax``. (The
+JAX CLIs' ``create_train_state`` is ``tests/torch_port_common.abstract_state``:
+the package's structure, values from a seed, nothing compiled.) Both
 evaluate CLIs then run with ``eval_policy`` learned, random, center and
 oracle (one action a video division; the oracle's the mean of the
 division's ground-truth targets where present). For 'random' the port is
@@ -28,6 +30,7 @@ from adafocus_tpu.ops.patch import random_patch_actions
 from adafocus_torch import config as tconfig
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_slice import _port_checkpoint_from_jax
+from tests.torch_port_common import abstract_state
 from tests.test_torch_port_sthsth_cli import miniact_root, sthsth_args  # noqa: F401 (a fixture)
 
 TOL = 1e-3
@@ -43,6 +46,7 @@ def jax_stage1(miniact_root):  # noqa: F811
                                             f"run.ckpt_dir={jdir}"]
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(jax, "device_count", lambda *a: 1)
+            mp.setattr(jtrain, "create_train_state", abstract_state)
             jtrain.main(args)
         _port_checkpoint_from_jax(jdir, tdir, tconfig.load_config(None, args).model)
         yield jdir, tdir
@@ -52,6 +56,7 @@ def jax_stage1(miniact_root):  # noqa: F811
 def test_sthsth_evaluate_clis_agree(jax_stage1, miniact_root, policy, tmp_path,  # noqa: F811
                                     monkeypatch):
     jdir, tdir = jax_stage1
+    monkeypatch.setattr(jevaluate, "create_train_state", abstract_state)
     args = sthsth_args(miniact_root) + [
         f"run.eval_policy={policy}", f"run.oracle_gt={miniact_root}/gt.npz"]
     want = jevaluate.main(args + [f"run.resume={jdir}", f"run.ckpt_dir={tmp_path / 'j'}"])

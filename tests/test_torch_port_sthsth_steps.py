@@ -48,7 +48,7 @@ from tests.test_torch_port_sthsth import STH
 from tests.test_torch_port_sthsth_train import B, OPT, SEED, _batch, _keep, _rel_update
 from tests.test_torch_port_train import _dropout_interceptor
 from tests.test_torch_port_train import one_torch_thread  # noqa: F401 (an autouse fixture)
-from tests.torch_port_common import jax_variables, port_model64, snapshot, state_dict_from_jax
+from tests.torch_port_common import abstract_variables, port_model64, snapshot, state_dict_from_jax
 
 # an optimizer that updates nothing and keeps the gradient as its state
 _CAPTURE = optax.GradientTransformation(
@@ -61,7 +61,7 @@ def setup64():
     """STH in float64: JAX's variables (BatchNorm random) and a batch."""
     with jax.enable_x64(True):
         cfg = dataclasses.replace(STH, dtype=jnp.float64)
-        _, variables = jax_variables(cfg, seed=SEED)
+        _, variables = abstract_variables(cfg, seed=SEED)
         variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
         jbatch, tbatch = _batch(cfg, B, SEED + 7, np.float64)
     return cfg, variables, jbatch, tbatch

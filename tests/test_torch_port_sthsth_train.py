@@ -68,7 +68,7 @@ from tests.test_torch_port_sthsth import STH
 from tests.test_torch_port_train import _dropout_interceptor
 from tests.test_torch_port_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.torch_port_common import (
-    jax_variables, port_config, port_model, randomize_bn, snapshot,
+    abstract_variables, port_config, port_model, randomize_bn, snapshot,
 )
 
 SEED = 4
@@ -151,7 +151,7 @@ def test_consensus_head_dropout_matches_jax():
 
 @pytest.fixture(scope="module")
 def sth_pair():
-    jmodel, variables = jax_variables(STH, seed=SEED)
+    jmodel, variables = abstract_variables(STH, seed=SEED)
     return jmodel, variables
 
 

@@ -339,7 +339,7 @@ def test_forward_random_matches_jax(train_setup):
     model = port_model64(cfg, variables)
     got = tgfv.forward_random(model, tbatch["frames"], tbatch["frames_small"],
                               torch.Generator(), actions=torch.from_numpy(actions))
-    assert _rel(got.detach(), torch.from_numpy(np.asarray(want))) <= 1e-9
+    assert _rel(got.detach(), torch.from_numpy(np.array(want))) <= 1e-9
     for key, value in model.state_dict().items():
         if key.endswith(("running_mean", "running_var")):
             assert _rel(value, want_sd[key]) <= 1e-9, key
@@ -357,7 +357,7 @@ def test_eval_step_matches_jax(train_setup):
         want, want_m = jax.jit(make_eval_step(jmodel))(jstate, jbatch, jax.random.key(0))
     model = port_model64(cfg, variables)
     got, got_m = tstages.make_eval_step(model)(tbatch)
-    assert _rel(got, torch.from_numpy(np.asarray(want))) <= 1e-9
+    assert _rel(got, torch.from_numpy(np.array(want))) <= 1e-9
     assert {k: float(v) for k, v in got_m.items()} == {k: float(v) for k, v in want_m.items()}
     # after a stage-1 step, which leaves the focuser in train mode, the eval
     # step runs both backbones in eval mode

@@ -2,8 +2,9 @@
 
 One stage-1 epoch of the tiny miniact set (``benchmarks/miniact_harness.py``'s
 tiny profile, batches of 12: two steps) through each package's
-``cli.train.main``, in-process. The port's run starts from JAX's initial
-weights and replays JAX's augmentation draws and random patch actions from
+``cli.train.main``, in-process. The port's run starts from the JAX run's
+initial weights (``tests/torch_port_common.abstract_state``: the package's
+structure, values from a seed) and replays JAX's augmentation draws and random patch actions from
 each batch's key (JAX's batch prep and step both draw from the key's first
 half). What the CLIs glue together is held:
 
@@ -49,11 +50,11 @@ from adafocus_tpu.cli import common as jcommon
 from adafocus_tpu.cli import train as jtrain
 from adafocus_tpu.ops.patch import random_patch_actions
 from adafocus_tpu.train import checkpoint as jckpt
-from adafocus_tpu.train import stages as jstages
 from adafocus_tpu.train.optim import lr_schedule
 from tests.test_torch_port_cli import tiny_miniact
 from tests.test_torch_port_data import ATOL, jax_draws, make_miniact
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
+from tests.torch_port_common import abstract_state, no_init
 
 BATCH = 12
 UPDATE_TOL = 1e-4
@@ -71,8 +72,9 @@ def _args(root: str) -> list:
 
 
 class _JaxRun:
-    """Wraps the JAX CLI's ``create_train_state`` (float64 parameters, and
-    the initial variables kept as numpy) and its training batch prep: each
+    """Wraps the JAX CLI's ``create_train_state`` (float64 parameters from
+    ``abstract_state``, nothing compiled but the optimizer's init; the
+    initial variables kept as numpy) and its training batch prep: each
     batch's raw frames and labels, prepared frames, and the augmentation
     draws and patch actions of its key, kept in order. (The draws are taken
     here, while JAX runs with 64-bit types: ``randint`` and ``uniform``
@@ -82,13 +84,10 @@ class _JaxRun:
         self.variables = None
         self.raw, self.frames, self.small, self.draws, self.actions = [], [], [], [], []
 
-    def create_train_state(self, *args, **kwargs):
-        state = jstages.create_train_state(*args, **kwargs)
-        params, stats = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
-                                     (state.params, state.batch_stats))
-        self.variables = jax.tree.map(np.asarray, (params, stats))
-        return state.replace(params=params, batch_stats=stats,
-                             opt_state=kwargs["tx"].init(params))
+    def create_train_state(self, model, rng, tx=None, ppo_cfg=None):
+        state = abstract_state(model, rng, tx, ppo_cfg)
+        self.variables = jax.tree.map(np.asarray, (state.params, state.batch_stats))
+        return state
 
     def make_batch_prep(self, cfg, train):
         prep = jcommon.make_batch_prep(cfg, train)
@@ -122,7 +121,8 @@ def runs(miniact_root):
     build_steps = ttrain.build_steps
 
     def create_train_state(cfg, stage, optim, device=None, generator=None, ppo=None):
-        model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
+        with no_init():
+            model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
         model.load_state_dict(gfv_state_dict_from_flax(*seen.variables, dtype=torch.float64))
         return TrainState(model, *toptim.make_stage_optimizer(model, stage, optim))
 

@@ -84,7 +84,7 @@ from tests.test_torch_port_cli import tiny_miniact
 from tests.test_torch_port_data import ATOL, MINIACT_GEN, jax_draws
 from tests.test_torch_port_data import one_torch_thread  # noqa: F401 (an autouse fixture)
 from tests.test_torch_port_train import _dropout_interceptor
-from tests.torch_port_common import abstract_variables, removed_after
+from tests.torch_port_common import abstract_variables, fresh_bn, no_init, removed_after
 from tests.torch_port_common import scratch_path  # noqa: F401 (a fixture)
 
 BATCH = 8
@@ -137,16 +137,6 @@ def _port_ce64(logits, labels):
     logp = torch.log_softmax(logits, dim=-1)
     b, t = logp.shape[:2]
     return -logp.gather(-1, labels.long().reshape(b, 1, 1).expand(b, t, 1)).mean()
-
-
-def _fresh_bn(tree, in_bn=False):
-    """``tree`` with every BatchNorm as a fresh one: scale and variance 1,
-    bias and mean 0 (``abstract_variables`` draws them at random, which in
-    eval mode leaves these tiny models' validation constant)."""
-    fresh = {"scale": 1.0, "var": 1.0, "bias": 0.0, "mean": 0.0}
-    return {k: _fresh_bn(v, k.startswith("bn")) if isinstance(v, dict)
-            else np.full_like(v, fresh[k]) if in_bn and k in fresh else v
-            for k, v in tree.items()}
 
 
 def _as_structure(target, saved):
@@ -213,7 +203,7 @@ class _JaxRun:
         the same fresh state to restore into."""
         if self.state is None:
             _, variables = abstract_variables(model.cfg, seed=5)
-            variables = {k: _fresh_bn(v) for k, v in variables.items()}
+            variables = {k: fresh_bn(v) for k, v in variables.items()}
             self.variables = (variables["params"], variables["batch_stats"])
             self.state = jstages.TrainState(
                 params=variables["params"], batch_stats=variables["batch_stats"],
@@ -296,7 +286,8 @@ class _PortRun:
         self.rows, self.counts, self.lrs, self.step_lrs, self.scores = [], [], [], [], []
 
     def create_train_state(self, cfg, stage, optim, device=None, generator=None, ppo=None):
-        model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
+        with no_init():
+            model = tgfv.GFV(cfg, device=device, param_dtype=torch.float64)
         model.load_state_dict(gfv_state_dict_from_flax(*self.seen.variables,
                                                        dtype=torch.float64))
         self.state = TrainState(model, *toptim.make_stage_optimizer(model, stage, optim))

@@ -1,10 +1,12 @@
 """Shared set-up of the port's parity tests (tests/test_torch_port_*.py).
 
-A JAX GFV is built in-process with ``create_train_state``; its trees go to
-numpy, every BatchNorm gets random scale, bias and running statistics (fresh
-ones are trivially 1/0/0/1 and would hide a swapped or dropped leaf), and
-the same trees feed both the flax modules and, through the weight bridge,
-the port.
+A JAX GFV's variables take the structure of ``create_train_state``'s from
+``jax.eval_shape`` and their values from a seeded numpy generator
+(``abstract_variables``: no jitted init, which costs tens of seconds of
+XLA:CPU compile a configuration); every BatchNorm gets random scale, bias
+and running statistics (fresh ones are trivially 1/0/0/1 and would hide a
+swapped or dropped leaf), and the same trees feed both the flax modules and,
+through the weight bridge, the port.
 
 Tests that write checkpoints, cases or artifacts take ``scratch_path``
 (module fixtures ``removed_after``): pytest keeps the temporary directories
@@ -14,6 +16,7 @@ stay on the disk after it.
 
 import contextlib
 import dataclasses
+import functools
 import shutil
 
 import jax
@@ -24,10 +27,11 @@ import torch
 from flax.core import unfreeze
 
 from adafocus_torch.models import gfv as tgfv
+from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.weights import gfv_state_dict_from_flax
 from adafocus_tpu.models.gfv import GFV, GFVConfig
 from adafocus_tpu.ops.patch import pad_for_extraction
-from adafocus_tpu.train.stages import create_train_state
+from adafocus_tpu.train.stages import TrainState, create_train_state
 
 # JAX GFVConfig of the tiny model of __graft_entry__._flagship
 TINY = GFVConfig(
@@ -78,11 +82,26 @@ def _map_tree(fn, tree, path=()):
 
 
 def jax_variables(cfg: GFVConfig, seed: int = 0):
-    """(flax GFV, {'params', 'batch_stats'} as numpy trees, BN randomised)."""
+    """(flax GFV, {'params', 'batch_stats'} as numpy trees) from the
+    package's own ``create_train_state`` (a jitted init: tens of seconds of
+    compile a configuration on the CPU), BatchNorms randomised. Only for
+    the tests whose bounds hold on these weights and not on
+    ``abstract_variables``' (ROADMAP item 26)."""
     model = GFV(cfg)
     state = create_train_state(model, jax.random.key(seed), batch_size=1)
     return model, randomize_bn(
         {"params": state.params, "batch_stats": state.batch_stats}, seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _variable_shapes(cfg: GFVConfig) -> dict:
+    """``GFV(cfg).init``'s variables as shapes, from ``jax.eval_shape``
+    (a trace of the whole model, seconds: once a configuration)."""
+    key = jax.random.key(0)
+    return unfreeze(jax.eval_shape(
+        GFV(cfg).init, {"params": key},
+        jnp.zeros((1, cfg.num_frames, cfg.glance_size, cfg.glance_size, 3), cfg.dtype),
+        jnp.zeros((cfg.t_focuser, cfg.patch_size, cfg.patch_size, 3), cfg.dtype), key))
 
 
 def abstract_variables(cfg: GFVConfig, seed: int = 0):
@@ -94,11 +113,7 @@ def abstract_variables(cfg: GFVConfig, seed: int = 0):
     other biases uniform in +-0.1; BatchNorm scale, bias and statistics as
     ``randomize_bn`` draws them, every BatchNorm's."""
     model = GFV(cfg)
-    key = jax.random.key(seed)
-    shapes = jax.eval_shape(
-        model.init, {"params": key},
-        jnp.zeros((1, cfg.num_frames, cfg.glance_size, cfg.glance_size, 3), cfg.dtype),
-        jnp.zeros((cfg.t_focuser, cfg.patch_size, cfg.patch_size, 3), cfg.dtype), key)
+    shapes = _variable_shapes(cfg)
     rs = np.random.RandomState(seed)
     dtype = np.dtype(cfg.dtype)
     ranges = {"scale": (0.5, 1.5), "mean": (-0.5, 0.5), "var": (0.5, 1.5)}
@@ -119,9 +134,35 @@ def abstract_variables(cfg: GFVConfig, seed: int = 0):
             raise KeyError(f"no filler for {'/'.join(path)}")
         return v.astype(dtype)
 
-    shapes = unfreeze(shapes)
     return model, {"params": _map_tree(fill, shapes["params"]),
                    "batch_stats": _map_tree(fill, shapes.get("batch_stats", {}))}
+
+
+def fresh_bn(tree, in_bn=False):
+    """``tree`` with every BatchNorm as flax's init makes it: scale and
+    variance 1, bias and mean 0."""
+    fresh = {"scale": 1.0, "var": 1.0, "bias": 0.0, "mean": 0.0}
+    return {k: fresh_bn(v, k.startswith("bn")) if isinstance(v, dict)
+            else np.full_like(v, fresh[k]) if in_bn and k in fresh else v
+            for k, v in tree.items()}
+
+
+def abstract_state(model: GFV, rng=None, tx=None, ppo_cfg=None,
+                   batch_size: int = 2) -> TrainState:
+    """A stand-in for the JAX package's ``create_train_state`` (its
+    signature; ``rng`` and ``batch_size`` change nothing it returns), with
+    the variables from ``abstract_variables`` and every BatchNorm fresh, as
+    the package's init leaves them: nothing compiled but ``tx.init``, where
+    the package's jitted init of the full-depth backbones costs tens of
+    seconds a configuration on the CPU. No PPO state (stage 2)."""
+    if ppo_cfg is not None:
+        raise NotImplementedError("abstract_state makes no PPO state")
+    _, variables = abstract_variables(model.cfg)
+    params, stats = (jax.tree.map(jnp.asarray, fresh_bn(variables[k]))
+                     for k in ("params", "batch_stats"))
+    return TrainState(params=params, batch_stats=stats,
+                      opt_state=None if tx is None else jax.jit(tx.init)(params),
+                      step=jnp.zeros((), jnp.int32))
 
 
 def randomize_bn(variables, seed: int):
@@ -151,9 +192,22 @@ def port_config(cfg: GFVConfig) -> tgfv.GFVConfig:
                           dtype=torch.float32)
 
 
+@contextlib.contextmanager
+def no_init():
+    """Builds the port's modules without drawing their initial weights (each
+    ``reset_parameters`` a no-op), for a model whose every weight is loaded
+    right after (``load_state_dict``, strict): a GFV's draws take about 2 s
+    on the CPU, its build without them 0.1 s."""
+    with pytest.MonkeyPatch.context() as mp:
+        for cls in (torch.nn.Linear, torch.nn.modules.conv._ConvNd, GRUCell, tgfv.GFV):
+            mp.setattr(cls, "reset_parameters", lambda self, *a, **k: None)
+        yield
+
+
 def port_model(cfg: GFVConfig, variables) -> tgfv.GFV:
     """The port's GFV on the CPU, loaded through the weight bridge."""
-    model = tgfv.GFV(port_config(cfg), device="cpu")
+    with no_init():
+        model = tgfv.GFV(port_config(cfg), device="cpu")
     model.load_state_dict(gfv_state_dict_from_flax(
         variables["params"], variables["batch_stats"]))
     return model
@@ -185,18 +239,20 @@ def snapshot(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def float64_train_setup(seed: int):
-    """The float64 JAX GFV at TRAIN_CFG, its randomised variables as float64
-    numpy trees and a float64 batch of TRAIN_B (JAX's and the port's)."""
+def float64_train_setup(seed: int, variables_of=abstract_variables):
+    """The float64 JAX GFV at TRAIN_CFG, its variables (``variables_of``)
+    as float64 numpy trees and a float64 batch of TRAIN_B (JAX's and the port's)."""
     with jax.enable_x64(True):
         cfg = dataclasses.replace(TRAIN_CFG, dtype=jnp.float64)
-        jmodel, variables = jax_variables(cfg, seed=seed)
+        jmodel, variables = variables_of(cfg, seed=seed)
         variables = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
         return (cfg, jmodel, variables) + train_batch(cfg, TRAIN_B, seed + 1, np.float64)
 
 
 def port_model64(cfg: GFVConfig, variables) -> tgfv.GFV:
     """The port's float64 GFV on the CPU with the bridged ``variables``."""
-    model = tgfv.GFV(dataclasses.replace(port_config(cfg), dtype=torch.float64), device="cpu")
+    with no_init():
+        model = tgfv.GFV(dataclasses.replace(port_config(cfg), dtype=torch.float64),
+                         device="cpu")
     model.load_state_dict(state_dict_from_jax(variables, torch.float64))
     return model
