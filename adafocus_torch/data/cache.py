@@ -58,23 +58,34 @@ class CachedVideoLoader:
             return 0.0
         t0 = time.perf_counter()
         frames = self._load_memoized()
-        if frames is None:
-            src = self.inner.source
-            all_idx = np.arange(1, self._t_stored + 1)
-            canvas = self.cfg.canvas_size
-            first = self._load_all(src, self.records[0], all_idx, canvas)
-            frames = np.empty((len(self.records),) + first.shape, np.uint8)
-            frames[0] = first
-            for i, rec in enumerate(self.records[1:], start=1):
-                frames[i] = self._load_all(src, rec, all_idx, canvas)
-            self._save_memoized(frames)
-        if self.device is not None:
-            self._frames = torch.from_numpy(frames).to(self.device)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        if frames is None and self.device is not None and not self._memo_path():
+            # nothing to memoize: each video goes to the device as it is
+            # decoded, with no host array of the whole cache
+            self._frames = self._decode(self.device)
         else:
-            self._frames = frames
+            if frames is None:
+                frames = self._decode()
+                self._save_memoized(frames)
+            self._frames = frames if self.device is None else \
+                torch.from_numpy(frames).to(self.device)
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def _decode(self, device: Optional[torch.device] = None):
+        """Every record's stored frames, (N, T, S, S, 3) uint8: a numpy array,
+        or with ``device`` a tensor there, each record's frames copied over
+        as they are decoded."""
+        src = self.inner.source
+        all_idx = np.arange(1, self._t_stored + 1)
+        canvas = self.cfg.canvas_size
+        first = self._load_all(src, self.records[0], all_idx, canvas)
+        frames = torch.empty((len(self.records),) + first.shape, dtype=torch.uint8,
+                             device=device or "cpu")
+        for i, rec in enumerate(self.records):
+            video = first if i == 0 else self._load_all(src, rec, all_idx, canvas)
+            frames[i] = torch.from_numpy(video)
+        return frames.numpy() if device is None else frames
 
     @property
     def nbytes(self) -> int:

@@ -237,7 +237,8 @@ Phases, each raising on failure:
      subprocesses; the port's backbones on the converted weights against the
      reference modules on theirs, float32 with TF32 off, max|d| / max|ref|
      <= 1e-4 (ResNet-50 on 64 patches of 96^2, MobileNetV2 on 16 frames of
-     224^2). (b) ``cli.train`` stage 1 warm-started from the converted
+     224^2); it times nothing and runs after (b) of phase 14, beside phase
+     13's exports. (b) ``cli.train`` stage 1 warm-started from the converted
      focuser (phase 9's arguments: flagship width, bf16, B=32, synthetic
      clips in a device cache; one epoch), with the launch counts set to 0
      just before: the focuser equal to the converted tensors bit for bit in
@@ -357,9 +358,10 @@ SASS_LIBS = ("fused_inv_residual", "fused_bottleneck", "int8_conv")
 def build_kernels() -> tuple:
     """Phase 2's build: each kernel library built in a thread of its own
     (``_kernels.build``), so that every nvcc runs at once, and the SASS of
-    each of SASS_LIBS dumped (``cuobjdump -sass``) as soon as it is built,
-    beside the builds still running. Returns (the wall seconds, {library:
-    SASS})."""
+    each of SASS_LIBS dumped (``cuobjdump -sass`` of each of its cubins, all
+    at once) as soon as it is built, beside the builds still running.
+    Returns (the wall seconds, {library: SASS})."""
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     from adafocus_torch.ops import _kernels
@@ -370,8 +372,26 @@ def build_kernels() -> tuple:
         _kernels.build([lib])
         if lib not in SASS_LIBS:
             return None
-        return subprocess.run([tool, "-sass", str(_kernels.library_path(lib))],
-                              capture_output=True, text=True, check=True).stdout
+        # one cuobjdump disassembles a library's cubins one after another
+        # (a source built as units has one a unit): each cubin apart, at once
+        with tempfile.TemporaryDirectory() as tmp:
+            subprocess.run([tool, "-xelf", "all", str(_kernels.library_path(lib))], cwd=tmp,
+                           capture_output=True, check=True)
+            cubins = sorted(f for f in os.listdir(tmp) if f.endswith(".cubin"))
+            if not cubins:
+                raise AssertionError(f"cuobjdump -xelf extracted no cubin of {lib}")
+            outs = [os.path.join(tmp, c + ".sass") for c in cubins]
+            procs = []
+            for c, path in zip(cubins, outs):
+                with open(path, "w") as out:
+                    procs.append(subprocess.Popen([tool, "-sass", c], cwd=tmp, stdout=out))
+            if any(p.wait() for p in procs):
+                raise AssertionError(f"cuobjdump -sass failed on a cubin of {lib}")
+            sass = []
+            for path in outs:
+                with open(path) as f:
+                    sass.append(f.read())
+            return "".join(sass)
 
     start = time.perf_counter()
     libs = list(_kernels.SIGNATURES)
@@ -828,6 +848,9 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
     from adafocus_torch.ops.fused_blocks import out_size, plan_bottleneck, plan_inv_residual
     from adafocus_torch.utils.profiling import events_ms
 
+    # the inputs at N drawn on the card: the CPU's generator draws a row's
+    # hundreds of millions of values serially, in seconds
+    on_card = torch.Generator(device).manual_seed(int(torch.randint(2**62, (), generator=gen)))
     per_shape = []
     for kernel, entries in shapes.items():
         fold, run, plain = _block_fns(kernel)
@@ -842,7 +865,7 @@ def _timed_block_rows(shapes: dict, n_of: dict, gen, device, sass: dict, worst: 
             params, args = fold(module, torch.bfloat16), _block_args(kernel, module)
             if tsm:
                 args["use_res"] = False
-            x = torch.randn((n, h, h, cin), generator=gen).to(device, torch.bfloat16)
+            x = torch.randn((n, h, h, cin), generator=on_card, device=device).bfloat16()
             rel, d = _rel_err(run(x, params, **args), plain(x, params, **args))
             if not rel <= BLOCK_TOL["bfloat16"]:
                 raise AssertionError(f"{kernel} {label}{e['block']} N={n} bf16: {rel}")
@@ -2003,6 +2026,7 @@ def cli_phase(device, card: str) -> dict:
 
     out = {"stages": {}, "evaluate": {}}
     n_val = -(-CLI_VIDEOS // CLI_B)
+    real_build = cli_train.build_state
     with tempfile.TemporaryDirectory() as tmp:
         log = os.path.join(tmp, "cli.log")
         prev = None
@@ -2010,22 +2034,32 @@ def cli_phase(device, card: str) -> dict:
             args = _cli_args(tmp, f"run.stage={stage}", f"run.epochs={epochs}",
                              f"run.ckpt_dir={tmp}/s{stage}",
                              *([f"run.warm_start={prev}"] if prev else []))
-            tree = None
+            tree, checked = None, []
             if prev:
-                # the warm start main() makes, checked before it trains
-                cfg = load_config(args[1], args[2:])
+                # the warm start main() makes, checked in the state it builds,
+                # before it trains
                 tree = ckpt.load_checkpoint(prev, best=True) or ckpt.load_checkpoint(prev)
-                with open(log, "a") as f, contextlib.redirect_stdout(f):
-                    state, _, _ = cli_train.build_state(cfg, CLI_VIDEOS // CLI_B, device)
                 loaded = [c for c in ckpt.STAGE_LOADS[stage] if c in tree["components"]]
-                _same_as_checkpoint(state.model, tree, loaded, f"stage {stage} warm start")
-                del state
+
+                def checked_build_state(*a, **kw):
+                    built = real_build(*a, **kw)
+                    _same_as_checkpoint(built[0].model, tree, loaded,
+                                        f"stage {stage} warm start")
+                    checked.append(stage)
+                    return built
+
+                cli_train.build_state = checked_build_state
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             _launch_counts(reset=True)
-            res = _run_cli(cli_train.main, args, log)
+            try:
+                res = _run_cli(cli_train.main, args, log)
+            finally:
+                cli_train.build_state = real_build
             torch.cuda.synchronize()
             launches = _launch_counts()
+            if prev and checked != [stage]:
+                raise AssertionError(f"CLI stage {stage}: main() built no state to check")
             steps = sum(e["steps"] for e in res["epochs"])
             want = (2 if stage == 2 else 1) * steps + n_val * epochs
             if launches != {"extract_patches": want, "fused_inverted_residual": 0,
@@ -4020,12 +4054,12 @@ _EXPORT_HELPER = (
     "chip_smoke.export_helper(torch.device(sys.argv[1]), torch.load(sys.argv[2]), sys.argv[3],\n"
     "                         [int(i) for i in sys.argv[4:]])\n"
 )
-# the exporting process of phase 13: export_run on the card, the scales loaded
+# the exporting process of phase 13: export_run on the card, given the
+# scales' file (it starts its helpers before it imports torch)
 _EXPORT = (
-    "import json, sys, torch\n"
+    "import json, sys\n"
     "import chip_smoke\n"
-    "out = chip_smoke.export_run(torch.device(sys.argv[1]), sys.argv[2], torch.load(sys.argv[3]),\n"
-    "                            gate=sys.stdin.readline)\n"
+    "out = chip_smoke.export_run(sys.argv[1], sys.argv[2], sys.argv[3], gate=sys.stdin.readline)\n"
     "print(json.dumps(out))\n"
 )
 
@@ -4126,11 +4160,13 @@ def export_helper(device, q8_scales, tmp: str, indices: list) -> None:
           flush=True)
 
 
-def export_run(device, card: str, q8_scales, gate=lambda: None) -> dict:
-    """Phase 13's exporting process. One fresh process that reloads and
-    serves every artifact (``serve_reloaded``) starts first, so that its
-    start-up and loads run beside the exports, and a helper exporting
-    process (``export_helper``) with it: each exports its share of
+def export_run(device: str, card: str, scales_path: str, gate=lambda: None) -> dict:
+    """Phase 13's exporting process (``device`` a name, phase 12's scales
+    in the file ``scales_path``). One fresh process that reloads and serves
+    every artifact (``serve_reloaded``) starts first of all, before this
+    process imports torch, so that its start-up and loads run beside the
+    exports, and a helper exporting process (``export_helper``) with it:
+    each exports its share of
     ``_export_cases`` (``EXPORT_SPLIT``, ``_export_case``: export s, save
     s, MB, the eager logits), and each artifact goes to the serving process
     to load as soon as it is saved. When that process has loaded all four
@@ -4142,23 +4178,22 @@ def export_run(device, card: str, q8_scales, gate=lambda: None) -> dict:
     import tempfile
     import threading
 
-    import torch
-
     start = time.perf_counter()
-    _export_backends()
-    cases = _export_cases(q8_scales)
     rows, paths, runs, helped = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp, open(os.path.join(tmp, "err"), "w+") as err, \
             open(os.path.join(tmp, "helper_err"), "w+") as helper_err:
-        scales_path = os.path.join(tmp, "scales.pt")
-        torch.save(q8_scales, scales_path)
         t_proc = time.perf_counter()
         proc = subprocess.Popen([sys.executable, "-c", _RELOAD], cwd=ROOT, text=True,
                                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err)
         helper = subprocess.Popen(
-            [sys.executable, "-c", _EXPORT_HELPER, str(device), scales_path, tmp,
+            [sys.executable, "-c", _EXPORT_HELPER, device, scales_path, tmp,
              *map(str, EXPORT_SPLIT[1])], cwd=ROOT, text=True, stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=helper_err)
+        import torch
+
+        device = torch.device(device)
+        _export_backends()
+        cases = _export_cases(torch.load(scales_path))
         lock = threading.Lock()   # both hand artifacts to the serving process
 
         def hand_over(artifact_paths):
@@ -4238,8 +4273,8 @@ def export_run(device, card: str, q8_scales, gate=lambda: None) -> dict:
             rel = ((got - want).abs().max() / want.abs().max()).item()
             row.update(served_rows[artifact], rel_err=rel)
             print(f"export {key} B={EXPORT_B}: export {row['export_s']!r} s, save "
-                  f"{row['save_s']!r} s (both beside the other exporting process and phase 14 "
-                  f"(b), (c): not comparable with a serial export's), {row['mb']!r} MB "
+                  f"{row['save_s']!r} s (both beside the other exporting process and phases 14 "
+                  f"(b), (c) and 15 (a): not comparable with a serial export's), {row['mb']!r} MB "
                   f"({row['state_tensors']} state "
                   f"tensors on the card); fresh-process load {row['load_s']!r} s; launches "
                   f"{row['launches']}; reloaded vs eager logits max|d|/max|eager| {rel!r} "
@@ -4651,7 +4686,7 @@ def dp_dryrun(card: str, beside) -> tuple:
     if proc.returncode != 0 or not ok:
         raise AssertionError(f"dry run exited {proc.returncode}:\n{text[-6000:]}")
     print(f"{ok[0]} -- {seconds!r} s in all, the process's start included; it ran beside "
-          f"phase 14 (b) ({card})", flush=True)
+          f"phase 14 (b) and 15 (a) ({card})", flush=True)
     return {"seconds": seconds, "line": ok[0]}, result
 
 
@@ -5005,16 +5040,14 @@ def tool_variants(device, card: str) -> dict:
 
 
 @_seconds
-def tool_phase(device, card: str, q8_scales, patch_ms: float) -> dict:
-    """Phase 15: (a) to (e); each raises on failure."""
-    import tempfile
-
+def tool_phase(device, card: str, q8_scales, patch_ms: float, tmp: str, converted) -> dict:
+    """Phase 15: (b) to (e), each raising on failure, after (a)
+    (``tool_convert``, run beside phase 13; ``converted`` its result, its
+    files in ``tmp``)."""
     start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        convert, converted = tool_convert(device, card, tmp)
-        out = {"convert": convert,
-               "cli": tool_warm_start_cli(device, card, tmp, converted)}
-        out["profiles"] = tool_profiles(device, card, tmp, q8_scales, patch_ms)
+    convert, focuser = converted
+    out = {"convert": convert, "cli": tool_warm_start_cli(device, card, tmp, focuser)}
+    out["profiles"] = tool_profiles(device, card, tmp, q8_scales, patch_ms)
     out["variants"] = tool_variants(device, card)
     out["seconds"] = time.perf_counter() - start
     return out
@@ -5159,16 +5192,17 @@ def main() -> int:
     done("phase 12")
     q8_scales = q8.pop("flagship_scales")
     # phase 14 (a) times steps: it runs alone, first; phase 13's exports and
-    # loads, 14 (b) and 14 (c) time nothing: they run at once, then phase
-    # 13's timings run with the card otherwise idle
-    with tempfile.TemporaryDirectory() as dp_tmp:
+    # loads, 14 (b), 14 (c) and 15 (a) time nothing: they run at once, then
+    # phase 13's timings run with the card otherwise idle
+    with tempfile.TemporaryDirectory() as dp_tmp, tempfile.TemporaryDirectory() as tool_tmp:
         dp = {"one_rank": dp_one_rank(device, card, dp_tmp)}
         done("phase 14 (a)")
-        export, (dp["dryrun"], dp["two_ranks"]) = export_phase(
+        export, (dp["dryrun"], (dp["two_ranks"], converted)) = export_phase(
             device, card, q8_scales,
-            beside=lambda: dp_dryrun(card, lambda: dp_two_ranks(device, card, dp_tmp)))
-    done("phase 13, with 14 (b) and (c) beside its exports")
-    tools = tool_phase(device, card, q8_scales, ext["patch_kernel_ms"])
+            beside=lambda: dp_dryrun(card, lambda: (dp_two_ranks(device, card, dp_tmp),
+                                                    tool_convert(device, card, tool_tmp))))
+        done("phase 13, with 14 (b), (c) and 15 (a) beside its exports")
+        tools = tool_phase(device, card, q8_scales, ext["patch_kernel_ms"], tool_tmp, converted)
     done("phase 15")
     # each kernel's count from the run of this slice's main path (phase 14,
     # the patch kernel; below), for the int8 kernels phase 13's and for the

@@ -222,6 +222,37 @@ def test_loader_batches_identical(miniact_root, source, mode, cache):
     _assert_same_batches(jl, tl)
 
 
+@pytest.mark.parametrize("canvas", [1, 5, 7, 40])
+def test_synthetic_frames_match_jax(canvas):
+    # the port reads the generator's raw outputs as bytes; at canvases whose
+    # frame is and is not a whole number of 8-byte outputs
+    jrec, trec = jrecords.VideoRecord("v3", 5, (1, -1, -1)), trecords.VideoRecord("v3", 5, (1, -1, -1))
+    for index in (1, 2, 5):
+        got = tpipe.SyntheticVideoSource().load_frame(trec, index, canvas)
+        want = jpipe.SyntheticVideoSource().load_frame(jrec, index, canvas)
+        assert got.shape == want.shape == (canvas, canvas, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+
+
+def test_device_cache_of_a_source_without_directory():
+    """A source with no directory (nothing to memoize) fills a device cache,
+    here on the CPU, video by video: the same batches as the JAX package's
+    host cache."""
+    fields = dict(num_segments=3, canvas_size=40, batch_size=4, mode="train",
+                  num_workers=2, seed=11, drop_last=True)
+    jrecs = [jrecords.VideoRecord(f"v{i}", 7, (i % 3, -1, -1)) for i in range(10)]
+    trecs = [trecords.VideoRecord(r.path, r.num_frames, r.labels) for r in jrecs]
+    jl = jcache.maybe_cache(jpipe.VideoLoader(jrecs, jpipe.SyntheticVideoSource(),
+                                              jpipe.LoaderConfig(**fields)), "host")
+    tl = tcache.maybe_cache(tpipe.VideoLoader(trecs, tpipe.SyntheticVideoSource(),
+                                              tpipe.LoaderConfig(**fields)),
+                            "device", torch.device("cpu"))
+    assert tl._memo_path() == ""
+    tl.fill()
+    assert isinstance(tl._frames, torch.Tensor) and tl.nbytes == 10 * 7 * 40 * 40 * 3
+    _assert_same_batches(jl, tl)
+
+
 def test_cache_matches_stream_and_memo(miniact_root, tmp_path):
     """The host cache serves what the streaming loader serves, its memo
     round-trips, and ``fill`` reports the bytes it holds."""

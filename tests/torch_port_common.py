@@ -31,7 +31,7 @@ from adafocus_torch.models.gru import GRUCell
 from adafocus_torch.weights import gfv_state_dict_from_flax
 from adafocus_tpu.models.gfv import GFV, GFVConfig
 from adafocus_tpu.ops.patch import pad_for_extraction
-from adafocus_tpu.train.stages import TrainState, create_train_state
+from adafocus_tpu.train.stages import TrainState
 
 # JAX GFVConfig of the tiny model of __graft_entry__._flagship
 TINY = GFVConfig(
@@ -79,18 +79,6 @@ def scratch_path(tmp_path):
 def _map_tree(fn, tree, path=()):
     return {k: _map_tree(fn, v, path + (k,)) if isinstance(v, dict)
             else fn(path + (k,), v) for k, v in tree.items()}
-
-
-def jax_variables(cfg: GFVConfig, seed: int = 0):
-    """(flax GFV, {'params', 'batch_stats'} as numpy trees) from the
-    package's own ``create_train_state`` (a jitted init: tens of seconds of
-    compile a configuration on the CPU), BatchNorms randomised. Only for
-    the tests whose bounds hold on these weights and not on
-    ``abstract_variables``' (ROADMAP item 26)."""
-    model = GFV(cfg)
-    state = create_train_state(model, jax.random.key(seed), batch_size=1)
-    return model, randomize_bn(
-        {"params": state.params, "batch_stats": state.batch_stats}, seed)
 
 
 @functools.lru_cache(maxsize=None)
