@@ -57,6 +57,7 @@ from adafocus_torch.models.mobilenet import MobileNetV2
 from adafocus_torch.models.policy import ActorCritic, sample_rollout
 from adafocus_torch.models.resnet import resnet50
 from adafocus_torch.ops.patch import extract_patches_at, random_patch_actions
+from adafocus_torch.utils.profiling import span
 
 Device = Optional[Union[str, torch.device]]
 
@@ -416,8 +417,10 @@ def _focus_and_classify(model: GFV, frames: torch.Tensor, pooled: torch.Tensor,
     cfg = model.cfg
     b, t = pooled.shape[:2]
     patches = extract_for_frames(frames, actions, cfg.image_size, cfg.patch_size)
-    local = fused_focus(model, patches) if fused else model.focus(patches)
-    return fuse_and_classify(model, pooled, local.reshape(b, t, -1))
+    with span("focus"):
+        local = fused_focus(model, patches) if fused else model.focus(patches)
+    with span("classify"):
+        return fuse_and_classify(model, pooled, local.reshape(b, t, -1))
 
 
 @torch.inference_mode()
@@ -433,19 +436,22 @@ def inference(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,
     Runs on ``device`` (the GPU unless ``device="cpu"``), where the model
     must already be. Returns per-step logits (B, T, classes), the last step
     the prediction (the linear head: log-probabilities (B, classes)).
+    The call is the span ``serve``, its phases ``glance``, ``policy``,
+    ``focus`` and ``classify`` (``utils/profiling.py span``).
     """
     if model.cfg.sthsth:
         raise ValueError("a consensus-head (sth-sth) model serves through "
                          "models.gfv_sthsth.inference_sthsth")
-    frames, frames_small = _on_model_device(model, device, frames, frames_small)
-    use_fused = fused_enabled(fused)
-    with model.autocast():
-        if use_fused:
-            fmap, pooled = fused_glance(model, frames_small)
-            roll = model.policy_rollout(fmap)
-        else:
-            _, pooled, roll = glance_policy_actions(model, frames_small)
-        return _focus_and_classify(model, frames, pooled, roll["actions"], use_fused)
+    with span("serve"):
+        frames, frames_small = _on_model_device(model, device, frames, frames_small)
+        use_fused = fused_enabled(fused)
+        with model.autocast():
+            with span("glance"):
+                fmap, pooled = (fused_glance(model, frames_small) if use_fused
+                                else model.glance(frames_small))
+            with span("policy"):
+                roll = model.policy_rollout(fmap)
+            return _focus_and_classify(model, frames, pooled, roll["actions"], use_fused)
 
 
 @torch.inference_mode()
@@ -455,11 +461,13 @@ def inference_with_actions(model: GFV, frames: torch.Tensor,
     """Deployment forward with externally supplied (B, T, 2) patch actions in
     [0, 1]^2; the policy is bypassed. Returns per-step logits like
     ``inference``."""
-    frames, frames_small, actions = _on_model_device(
-        model, device, frames, frames_small, actions)
-    with model.autocast():
-        _, pooled = model.glance(frames_small)
-        return _focus_and_classify(model, frames, pooled, actions)
+    with span("serve"):
+        frames, frames_small, actions = _on_model_device(
+            model, device, frames, frames_small, actions)
+        with model.autocast():
+            with span("glance"):
+                _, pooled = model.glance(frames_small)
+            return _focus_and_classify(model, frames, pooled, actions)
 
 
 def forward_random(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,

@@ -33,6 +33,7 @@ from adafocus_torch.models.fused_inference import (
 )
 from adafocus_torch.models.gfv import GFV, Device, _on_model_device, extract_for_frames
 from adafocus_torch.ops.patch import random_patch_actions
+from adafocus_torch.utils.profiling import span
 
 
 def actions_per_frame(actions_div: torch.Tensor, t_focuser: int) -> torch.Tensor:
@@ -96,11 +97,11 @@ def _focus_and_consensus(model: GFV, frames: torch.Tensor, global_logits: torch.
     b, tf = frames.shape[:2]
     patches = extract_for_frames(frames, actions_per_frame(actions_div, tf),
                                  cfg.image_size, cfg.patch_size)
-    if fused:
-        local = model.classify_frame_logits(fused_focus(model, patches).reshape(b, tf, -1))
-    else:
-        local = local_frame_logits(model, patches, b)
-    return sum_consensus(global_logits, local, cfg.with_glancer)
+    with span("focus"):
+        feats = fused_focus(model, patches) if fused else model.focus(patches)
+    with span("classify"):
+        local = model.classify_frame_logits(feats.reshape(b, tf, -1))
+        return sum_consensus(global_logits, local, cfg.with_glancer)
 
 
 @torch.inference_mode()
@@ -115,17 +116,22 @@ def inference_sthsth(model: GFV, frames: torch.Tensor, frames_small: torch.Tenso
     temporal-shift split; 'auto' and 'off' run the library convs.
     Runs on ``device`` (the GPU unless ``device="cpu"``), where the model
     must already be. Returns the summed consensus logits (B, classes).
+    The call is the span ``serve``, its phases ``glance`` (with the
+    glancer's logits), ``policy``, ``focus`` and ``classify`` (the local
+    head and the consensus).
     """
-    frames, frames_small = _on_model_device(model, device, frames, frames_small)
-    _check_frames(model, frames, frames_small)
-    use_fused = fused_enabled(fused)
-    with model.autocast():
-        if use_fused:
-            fmap, global_logits = fused_glance_logits(model, frames_small)
-            roll = model.policy_rollout_div(fmap)
-        else:
-            _, global_logits, roll = glance_division_rollout(model, frames_small)
-        return _focus_and_consensus(model, frames, global_logits, roll["actions"], use_fused)
+    with span("serve"):
+        frames, frames_small = _on_model_device(model, device, frames, frames_small)
+        _check_frames(model, frames, frames_small)
+        use_fused = fused_enabled(fused)
+        with model.autocast():
+            with span("glance"):
+                fmap, global_logits = (fused_glance_logits(model, frames_small) if use_fused
+                                       else glance_logits(model, frames_small))
+            with span("policy"):
+                roll = model.policy_rollout_div(fmap)
+            return _focus_and_consensus(model, frames, global_logits, roll["actions"],
+                                        use_fused)
 
 
 @torch.inference_mode()
@@ -135,12 +141,14 @@ def inference_sthsth_with_actions(model: GFV, frames: torch.Tensor,
     """Deployment forward with externally supplied per-division actions
     (B, D, 2) in [0, 1]^2; the policy is bypassed. Returns (B, classes)
     like ``inference_sthsth``."""
-    frames, frames_small, actions_div = _on_model_device(
-        model, device, frames, frames_small, actions_div)
-    _check_frames(model, frames, frames_small)
-    with model.autocast():
-        _, global_logits = glance_logits(model, frames_small)
-        return _focus_and_consensus(model, frames, global_logits, actions_div)
+    with span("serve"):
+        frames, frames_small, actions_div = _on_model_device(
+            model, device, frames, frames_small, actions_div)
+        _check_frames(model, frames, frames_small)
+        with model.autocast():
+            with span("glance"):
+                _, global_logits = glance_logits(model, frames_small)
+            return _focus_and_consensus(model, frames, global_logits, actions_div)
 
 
 def forward_random_sthsth(model: GFV, frames: torch.Tensor, frames_small: torch.Tensor,

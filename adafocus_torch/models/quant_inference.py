@@ -76,6 +76,7 @@ from adafocus_torch.ops.quant import (
     FRAME_SCALE, QConv, act_scale_from_absmax, int8_conv, int8_dense, int8_unit, prepare_qconv,
     quantize_act, quantize_weight,
 )
+from adafocus_torch.utils.profiling import span
 
 Scales = Dict[str, Dict[str, torch.Tensor]]
 _ACT_NAMES = {None: None, F.relu: "relu", F.relu6: "relu6"}
@@ -573,26 +574,34 @@ def inference_q8(model: GFV, scales: Scales, frames: torch.Tensor, frames_small:
     the policy and the GRU classifier int8 too. frames (B, T, S, S, 3) and
     frames_small (B, T, g, g, 3), float or int8 transport. ``qw``: the
     cache of ``prepare_q8``. Returns per-step logits (B, T, classes) (the
-    linear head: log-probabilities (B, classes))."""
+    linear head: log-probabilities (B, classes)). The call is the span
+    ``serve``, its phases ``glance``, ``policy``, ``focus`` and
+    ``classify``, as in ``models.gfv.inference``."""
     if model.cfg.sthsth:
         raise ValueError("a consensus-head (sth-sth) model serves through inference_q8_sthsth")
-    frames, frames_small = _on_model_device(model, device, frames, frames_small)
-    cfg = model.cfg
-    heads = scales.get("heads")
-    hqw = None if qw is None else qw["heads"]
-    b, t = frames_small.shape[:2]
-    fmap, pooled = q8_glance(model, scales, _dequant_frames(frames_small, cfg.dtype), qw)
-    if heads is not None:
-        roll, _ = q8_policy_rollout(model, heads, fmap.float(), qw=hqw)
-    else:
-        with model.autocast():
-            roll = model.policy_rollout(fmap.to(cfg.dtype))
-    patches = extract_for_frames(frames, roll["actions"], cfg.image_size, cfg.patch_size)
-    local = q8_focus(model, scales, _dequant_frames(patches, cfg.dtype), qw).reshape(b, t, -1)
-    if heads is not None and cfg.classifier == "gru":
-        return q8_classify_gru(model, heads, pooled, local, hqw)[0]
-    with model.autocast():
-        return fuse_and_classify(model, pooled.to(cfg.dtype), local.to(cfg.dtype))
+    with span("serve"):
+        frames, frames_small = _on_model_device(model, device, frames, frames_small)
+        cfg = model.cfg
+        heads = scales.get("heads")
+        hqw = None if qw is None else qw["heads"]
+        b, t = frames_small.shape[:2]
+        with span("glance"):
+            fmap, pooled = q8_glance(model, scales, _dequant_frames(frames_small, cfg.dtype), qw)
+        with span("policy"):
+            if heads is not None:
+                roll, _ = q8_policy_rollout(model, heads, fmap.float(), qw=hqw)
+            else:
+                with model.autocast():
+                    roll = model.policy_rollout(fmap.to(cfg.dtype))
+        patches = extract_for_frames(frames, roll["actions"], cfg.image_size, cfg.patch_size)
+        with span("focus"):
+            local = q8_focus(model, scales, _dequant_frames(patches, cfg.dtype),
+                             qw).reshape(b, t, -1)
+        with span("classify"):
+            if heads is not None and cfg.classifier == "gru":
+                return q8_classify_gru(model, heads, pooled, local, hqw)[0]
+            with model.autocast():
+                return fuse_and_classify(model, pooled.to(cfg.dtype), local.to(cfg.dtype))
 
 
 @torch.inference_mode()

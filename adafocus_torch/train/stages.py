@@ -49,6 +49,7 @@ from adafocus_torch.ppo.core import (
     PPOConfig, PPOState, compute_rewards, discounted_returns, ppo_init, ppo_update,
 )
 from adafocus_torch.train.optim import OptimConfig, freeze_for_stage, make_stage_optimizer
+from adafocus_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -135,7 +136,10 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
     'backward', 'optimizer'. The metrics are 0-d tensors
     on the device: the loss and the top-1/top-5 accuracy of the last step's
     logits. With ``replicas`` the batch is this rank's shard; the
-    gradients, the running statistics and the metrics are averaged.
+    gradients, the running statistics and the metrics are averaged. A step
+    is the span ``train_step``, its update (the optimizer, the schedule and
+    the running statistics' average) the span ``optimizer``
+    (``utils/profiling.py span``).
     """
     if stage not in (0, 1, 3):
         raise ValueError(f"stage {stage}: stages 0, 1 and 3 only "
@@ -148,9 +152,12 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
     def step(batch: Dict[str, torch.Tensor], generator: torch.Generator,
              actions: Optional[torch.Tensor] = None, keep: Optional[torch.Tensor] = None,
              mark: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+        with span("train_step"):
+            return _step(batch, generator, actions, keep, mark or (lambda phase: None))
+
+    def _step(batch, generator, actions, keep, note):
         frames, small, labels = batch["frames"], batch["frames_small"], batch["labels"]
         b, t = small.shape[:2]
-        note = mark or (lambda phase: None)
         optimizer.zero_grad(set_to_none=True)
         with model.autocast():
             with torch.set_grad_enabled(train_glancer):
@@ -187,8 +194,9 @@ def make_stage_train_step(model: GFV, stage: int, optimizer: torch.optim.Optimiz
                 note("heads")
         loss.backward()
         note("backward")
-        _sgd_step(optimizer, scheduler, replicas)
-        average_bn_stats_(model, replicas)
+        with span("optimizer"):
+            _sgd_step(optimizer, scheduler, replicas)
+            average_bn_stats_(model, replicas)
         note("optimizer")
         top1, top5 = topk_accuracy(_final(logits).detach(), labels)
         return average_metrics({"loss": loss.detach(), "top1": top1, "top5": top5}, replicas)

@@ -3,8 +3,12 @@
   * ``trace(log_dir)``: ``torch.profiler`` over the CPU and, where there is
     one, the GPU, around the enclosed steps; writes a Chrome trace
     (``chrome://tracing``, Perfetto) into ``log_dir``;
-  * ``StepTimer``: data-time / step-time meters, the reference's ('Data',
-    'Time') pair, with the device synchronised so the timings are honest;
+  * ``span(name)`` / ``recording()``: the program's own phase spans (the
+    serving entries' ``serve``, ``glance``, ``policy``, ``focus`` and
+    ``classify``; the stage-1 step's ``train_step`` and ``optimizer``).
+    Off by default, and then free; ``adafocus.<name>`` ranges in a
+    ``torch.profiler`` trace while one is active; kept in memory, with the
+    host's clock and CUDA events, while a ``Recorder`` is installed;
   * ``op_breakdown`` / ``top_ops``: read a captured trace and sum the
     device's time by kernel name (kernels, copies and memsets; the host's
     lanes are skipped);
@@ -22,6 +26,7 @@
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import glob
 import gzip
 import json
@@ -74,53 +79,151 @@ def trace(log_dir: str, name: Optional[str] = None,
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
-def _synchronize(result) -> None:
-    """Wait for every CUDA device that holds a tensor of ``result`` (a
-    tensor, or dicts, lists and tuples of them)."""
-    devices = set()
-    stack = [result]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+# ---------------------------------------------------------------------------
+# The program's own phase spans.
+# ---------------------------------------------------------------------------
+
+# the prefix of a span's range in a profiler's trace
+SPAN_PREFIX = "adafocus."
+# the recorder ``recording`` has installed, None while spans are off
+_recorder: Optional["Recorder"] = None
+_OFF = contextlib.nullcontext()
 
 
-class StepTimer:
-    """data-time (host pipeline) + step-time (device) meters."""
+def span(name: str):
+    """A phase of the program, as a context manager. Off (no profiler active
+    and no recorder installed, the default) it is one shared null context:
+    no profiler or CUDA call and no allocation. While a ``torch.profiler``
+    capture is active it opens the range ``adafocus.<name>``, which lies in
+    the capture's trace (a ``user_annotation``) on the profiler's clock
+    beside the kernels its host code launched; while a recorder is
+    installed (``recording``) the recorder keeps it."""
+    if _recorder is None and not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_recorder", "_index")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = self._recorder = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+            self._range.__enter__()
+        if _recorder is not None:
+            self._recorder = _recorder
+            self._index = _recorder._open(self.name)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._recorder is not None:
+            self._recorder._close(self._index)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One recorded span: ``parent`` and ``unit`` index ``Recorder.spans``
+    (``unit``: the outermost span it lies in, its own index for an
+    outermost span, so the spans of one request or step share it); the
+    host's clock at entry and exit; CUDA events recorded on the current
+    stream at entry and exit (None where the process has not initialised
+    CUDA)."""
+
+    name: str
+    parent: Optional[int]
+    unit: int
+    host_start_ns: int
+    host_end_ns: Optional[int] = None
+    start: Optional[torch.cuda.Event] = None
+    end: Optional[torch.cuda.Event] = None
+
+
+class Recorder:
+    """The spans opened, in one thread, while it is installed. It holds them
+    in memory (two CUDA events each on the card) until ``summary`` reads
+    them, so it is meant for a bounded stretch of requests or steps."""
 
     def __init__(self):
-        self.data_time = 0.0
-        self.step_time = 0.0
-        self.count = 0
-        self._t = time.perf_counter()
+        self.spans: List[SpanRecord] = []
+        self._stack: List[int] = []
+        self._cuda = torch.cuda.is_initialized()
 
-    def data_ready(self) -> None:
-        now = time.perf_counter()
-        self.data_time += now - self._t
-        self._t = now
+    def _open(self, name: str) -> int:
+        parent = self._stack[-1] if self._stack else None
+        index = len(self.spans)
+        rec = SpanRecord(name, parent, index if parent is None else self.spans[parent].unit,
+                         time.perf_counter_ns())
+        if self._cuda:
+            rec.start = torch.cuda.Event(enable_timing=True)
+            rec.start.record()
+        self.spans.append(rec)
+        self._stack.append(index)
+        return index
 
-    def step_done(self, result=None) -> None:
-        """Ends a step; waits for the devices of ``result`` first (the JAX
-        package's ``block_until_ready``), since a CUDA call returns before
-        its work is done."""
-        if result is not None:
-            _synchronize(result)
-        now = time.perf_counter()
-        self.step_time += now - self._t
-        self._t = now
-        self.count += 1
+    def _close(self, index: int) -> None:
+        rec = self.spans[index]
+        if self._cuda:
+            rec.end = torch.cuda.Event(enable_timing=True)
+            rec.end.record()
+        rec.host_end_ns = time.perf_counter_ns()
+        self._stack.pop()
 
-    def summary(self) -> str:
-        n = max(self.count, 1)
-        return (f"data {self.data_time / n * 1e3:.1f} ms/step, "
-                f"step {self.step_time / n * 1e3:.1f} ms/step")
+    def summary(self) -> Dict[str, dict]:
+        """Per span name, over the closed spans: ``count``, ``host_ms`` (the
+        host's time inside them, summed) and ``host_self_ms`` (less what
+        their child spans cover), ``device_ms`` (each span's
+        ``start.elapsed_time(end)``, summed: the stream's time from reaching
+        the span to finishing its last work, gaps where it waited for the
+        host included) and ``device_self_ms``; the device's None without
+        CUDA events. Synchronises the device once."""
+        closed = [i for i, s in enumerate(self.spans) if s.host_end_ns is not None]
+        timed = self._cuda and bool(closed)
+        if timed:
+            torch.cuda.synchronize()
+        host, device = {}, {}
+        for i in closed:
+            s = self.spans[i]
+            host[i] = (s.host_end_ns - s.host_start_ns) / 1e6
+            device[i] = s.start.elapsed_time(s.end) if timed else None
+        host_self, device_self = dict(host), dict(device)
+        for i in closed:
+            parent = self.spans[i].parent
+            if parent in host_self:
+                host_self[parent] -= host[i]
+                if timed:
+                    device_self[parent] -= device[i]
+        out: Dict[str, dict] = {}
+        for i in closed:
+            row = out.setdefault(self.spans[i].name, {
+                "count": 0, "host_ms": 0.0, "host_self_ms": 0.0,
+                "device_ms": 0.0 if timed else None, "device_self_ms": 0.0 if timed else None})
+            row["count"] += 1
+            row["host_ms"] += host[i]
+            row["host_self_ms"] += host_self[i]
+            if timed:
+                row["device_ms"] += device[i]
+                row["device_self_ms"] += device_self[i]
+        return out
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recorder]:
+    """Installs a ``Recorder`` for the enclosed block, and yields it: every
+    ``span`` opened meanwhile is kept. One recorder at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a span recorder is already installed")
+    _recorder = rec = Recorder()
+    try:
+        yield rec
+    finally:
+        _recorder = None
 
 
 # ---------------------------------------------------------------------------

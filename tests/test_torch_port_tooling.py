@@ -8,7 +8,7 @@ attribution (adafocus_torch/utils/profiling.py), the FLOP counter
   (device kernels, copies and memsets counted; the host's operators,
   runtime calls and annotations and the device's annotation lane skipped);
   ``trace()`` around a CPU function writes a file that ``_find_trace_file``
-  finds; ``StepTimer`` counts.
+  finds.
 - The device-time helper: ``device_ms`` and ``per_call_ms`` give None on
   the CPU's profiler events (host operators only), live (``as_trace_events``)
   or written; ``per_call_ms`` sums the kernel spans of a trace of N calls
@@ -130,16 +130,6 @@ def test_trace_writes_a_findable_trace(tmp_path):
         a.sum()
     assert any(e.get("name") == "aten::sum"
                for e in tprof.load_trace(str(tmp_path / "named.json")))
-
-
-def test_step_timer():
-    t = tprof.StepTimer()
-    t.data_ready()
-    t.step_done({"loss": torch.zeros(()), "parts": [torch.ones(2), 3.0]})
-    t.data_ready()
-    t.step_done()
-    assert t.count == 2 and t.step_time >= 0 and t.data_time >= 0
-    assert "ms/step" in t.summary()
 
 
 def test_device_time_of_cpu_profiler_events_is_none(tmp_path):
